@@ -6,9 +6,10 @@ Usage:
       [-r <output_ranks>] [-x <tds_batch>] [--max-iterations N] \\
       [--no-compact] [--device {cuda,cpu}]
 
-Searches ``<pattern_dir>/0`` on the graph DB written by the shared
-``graph.storage`` and writes the result tree with the shared
-``io.results.write_results`` — the layout of the JAX package's CLI.
+Searches ``<pattern_dir>/0`` on a graph DB (the JAX package's
+``graph.storage.save`` writes one; ``graph/storage.py`` reads it) and writes
+the result tree with ``io/results.py::write_results`` — the layout of the
+JAX package's CLI.
 ``--device cuda`` (the default) requires a CUDA card; there is no fallback
 to the CPU.
 """
@@ -22,15 +23,12 @@ import time
 
 import torch
 
-from fuzzypatternmatching_tpu.graph import storage
-from fuzzypatternmatching_tpu.io.labels import resolve_labels
-from fuzzypatternmatching_tpu.io.results import write_results
-from fuzzypatternmatching_tpu.pattern.nonlocal_constraint import (
-    load_nonlocal_constraints,
-)
-from fuzzypatternmatching_tpu.pattern.pattern_graph import load_pattern_graph
-
 from ..engine.driver import MatchEngine
+from ..graph import storage
+from ..io.labels import resolve_labels
+from ..io.results import write_results
+from ..pattern.nonlocal_constraint import load_nonlocal_constraints
+from ..pattern.pattern_graph import load_pattern_graph
 
 
 def main(argv=None):

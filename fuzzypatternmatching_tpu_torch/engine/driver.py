@@ -7,7 +7,8 @@ deletions, global fixpoint. LCC runs on the bucketed engine
 (``engine/lcc_bucketed.py``) on the given device, with the compact
 continuation: after the global init superstep the remaining supersteps run
 on an engine rebuilt over the pruned subgraph, on the same device. NLCC
-runs on the shared host engine (``fuzzypatternmatching_tpu.engine.nlcc``).
+runs on the host engine (``engine/nlcc.py``, the port's copy of the JAX
+package's).
 """
 
 from __future__ import annotations
@@ -18,21 +19,12 @@ import warnings
 import numpy as np
 import torch
 
-from fuzzypatternmatching_tpu.engine.nlcc import (
-    AliveCsr,
-    ForwardedSets,
-    invalidate_sources,
-    run_nem,
-    run_tds,
-)
-from fuzzypatternmatching_tpu.engine.result import MatchResult, PhaseRow
-from fuzzypatternmatching_tpu.graph.csr import Graph, from_edges
-from fuzzypatternmatching_tpu.pattern.nonlocal_constraint import (
-    NonLocalConstraint,
-)
-from fuzzypatternmatching_tpu.pattern.pattern_graph import PatternGraph
-
+from ..graph.csr import Graph, from_edges
+from ..pattern.nonlocal_constraint import NonLocalConstraint
+from ..pattern.pattern_graph import PatternGraph
 from .lcc_bucketed import BucketedLccEngine
+from .nlcc import AliveCsr, ForwardedSets, invalidate_sources, run_nem, run_tds
+from .result import MatchResult, PhaseRow
 
 
 class MatchEngine:
@@ -101,7 +93,7 @@ class MatchEngine:
     def _edge_index(self, v: int, u: int) -> int:
         """Edge slot of (v, u): binary search within v's sorted CSR row."""
         lo, hi = int(self.graph.row_ptr[v]), int(self.graph.row_ptr[v + 1])
-        row_cols = self.graph.cols_range(lo, hi)
+        row_cols = self.graph.cols[lo:hi]
         i = int(np.searchsorted(row_cols, u))
         if i < hi - lo and row_cols[i] == u:
             return lo + i

@@ -14,10 +14,12 @@ A superstep runs per bucket:
 * init (global init step): the neighbour candidates are the neighbours'
   label bitsets, replayed from per-slot label codes; accept test against
   the row's pattern-adjacency mask, row OR, keep mask — plain torch;
-* otherwise: the two hand-written kernels of ``ops/lcc_superstep.py``
-  (``rev_alive_lookup`` on the packed alive bits, then
-  ``gather_accept_or`` on the tv table), then the keep mask and the alive
-  update.
+* otherwise: the hand-written kernels of ``ops/lcc_superstep.py``. Once
+  per superstep over every bucket, ``alive_table`` packs the alive flags
+  (words and group summary) and ``rev_alive_lookup`` reads the alive bit
+  of every slot's reverse edge (``rev`` is one flat [S] tensor, each
+  bucket's plane a view of it); then per bucket ``gather_accept_or`` on
+  the tv table, the keep mask and the alive update.
 
 tv is int32 holding the 16-bit candidate set; alive and the token-passing
 flags are bool over the flat slot space plus one always-dead pad slot.
@@ -30,20 +32,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fuzzypatternmatching_tpu.engine.lazy_state import (
-    merged_flag_ids,
-    normalized_edge_ids,
-    normalized_flag_ids,
-)
-from fuzzypatternmatching_tpu.graph.csr import Graph
-from fuzzypatternmatching_tpu.pattern.pattern_graph import PatternGraph
-
+from ..graph.csr import Graph
 from ..ops.lcc_superstep import (
+    alive_table,
     gather_accept_or,
-    pack_alive,
     rev_alive_lookup,
     row_or,
 )
+from ..pattern.pattern_graph import PatternGraph
+from .lazy_state import merged_flag_ids, normalized_edge_ids, normalized_flag_ids
 
 MAX_TEMPLATE_VERTICES = 16  # tv and the kernels' tables hold 16 bits
 
@@ -63,7 +60,6 @@ class Bucket:
 class _DeviceBucket:
     rows: torch.Tensor  # int64 [n]
     adj: torch.Tensor  # int32 [n, w]
-    rev: torch.Tensor  # int32 [n, w]
     code: torch.Tensor  # label code of each slot's neighbour [n, w]
     seg_id: torch.Tensor  # int64 [n]
     seg_rows: torch.Tensor  # int64 [n_seg]
@@ -209,6 +205,14 @@ class BucketedLccEngine:
         lab_tv = pattern.label_match_bitset(np.asarray(labels)).astype(np.int32)
         self.label_tv = torch.from_numpy(lab_tv).to(dev)
         self._code_tv = torch.from_numpy(code_tv).to(dev)
+        # rev of every slot, bucket after bucket: one lookup launch covers
+        # the whole slot space
+        self._rev_flat = torch.from_numpy(
+            np.concatenate(
+                [b.rev.reshape(-1) for b in self.buckets]
+                + [np.empty(0, dtype=np.int32)]
+            )
+        ).to(dev)
         self._dev = []
         for b in self.buckets:
             rows = torch.from_numpy(b.rows.astype(np.int64)).to(dev)
@@ -217,7 +221,6 @@ class BucketedLccEngine:
                 _DeviceBucket(
                     rows=rows,
                     adj=torch.from_numpy(b.adj).to(dev),
-                    rev=torch.from_numpy(b.rev).to(dev),
                     code=torch.from_numpy(code_pad[b.adj]).to(dev),
                     seg_id=torch.from_numpy(b.seg_id.astype(np.int64)).to(dev),
                     seg_rows=seg_rows,
@@ -277,7 +280,7 @@ class BucketedLccEngine:
         new_alive = torch.zeros(self.num_slots + 1, dtype=torch.bool, device=dev)
         if not init:
             tv_table = torch.cat([tv, tv.new_zeros(1)])
-            alive_bits = pack_alive(alive)
+            alive_rev_flat = rev_alive_lookup(self._rev_flat, alive_table(alive))
 
         for b, d in zip(self.buckets, self._dev):
             n, w = b.adj.shape
@@ -292,7 +295,7 @@ class BucketedLccEngine:
                 tn_rows = row_or(torch.where(accept, p, 0))
                 sendok_rows = send_ok.sum(dim=1, dtype=torch.int32)
             else:
-                alive_rev = rev_alive_lookup(d.rev, alive_bits)
+                alive_rev = alive_rev_flat[lo:hi].view(n, w)
                 tn_rows, accept, sendok_rows = gather_accept_or(
                     d.adj, alive_rev, adj_mask_rows, tv_table
                 )

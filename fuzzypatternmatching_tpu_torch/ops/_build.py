@@ -28,7 +28,13 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "lcc_superstep": {
-        "fpm_rev_alive_lookup": [_P, _P, _P, ctypes.c_int64, _P],
+        "fpm_pack_alive": [
+            _P, ctypes.c_int64, _P, ctypes.c_int64, _P, ctypes.c_int64,
+            ctypes.c_int32, _P,
+        ],
+        "fpm_rev_alive_lookup": [
+            _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P, ctypes.c_int64, _P,
+        ],
         "fpm_gather_accept_or": [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P,
         ],

@@ -1,11 +1,15 @@
-"""The two kernels of the non-init LCC superstep, and their plain twins.
+"""The kernels of the non-init LCC superstep, and their plain twins.
 
 Counterpart of ``fuzzypatternmatching_tpu/ops/lcc_superstep.py``, whose
 Pallas kernels wanted the lookup tables resident in VMEM. Here they are
 hand-written CUDA kernels for Hopper (``csrc/lcc_superstep.cu``), built with
 nvcc at first use (``ops/_build.py``):
 
-  * ``rev_alive_lookup``: the packed alive bit of each slot's reverse edge;
+  * ``alive_table`` (``pack_alive``): the packed alive words, plus a group
+    summary with one bit per group of G slots, set where any flag of the
+    group is set;
+  * ``rev_alive_lookup``: the packed alive bit of each slot's reverse edge,
+    read through the summary;
   * ``gather_accept_or``: tv-table gather, accept test against the row's
     pattern-adjacency mask, row OR and per-row send count, for one ELL
     bucket.
@@ -16,15 +20,22 @@ card there is no fallback: a kernel that cannot be built or launched raises.
 ``launches`` counts the kernel launches of each wrapper.
 
 Types: tv, the tv table and the row masks are int32 holding 16 bits (torch
-on the CPU has no shifts or ``amax`` on uint32); the alive table is int32
-words whose bit pattern equals the JAX package's uint32 words.
+on the CPU has no shifts or ``amax`` on uint32); the alive words and the
+summary are int32 words whose bit pattern equals the JAX package's uint32
+words.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-launches = {"rev_alive_lookup": 0, "gather_accept_or": 0}
+launches = {"pack_alive": 0, "rev_alive_lookup": 0, "gather_accept_or": 0}
+
+# The group summary must fit this many bytes of shared memory in the lookup
+# kernel (csrc/lcc_superstep.cu, kMaxSummaryBytes).
+SUMMARY_BUDGET_BYTES = 96 * 1024
 
 
 def reset_launches() -> None:
@@ -32,19 +43,97 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def pack_alive(alive: torch.Tensor) -> torch.Tensor:
-    """Bit-pack a bool flag array into int32 words, LSB first: bit i of
-    word j is ``alive[32 j + i]`` (the JAX package's uint32 words, viewed as
-    int32)."""
-    n = alive.shape[0]
-    npad = -(-n // 32) * 32
-    a = torch.zeros(npad, dtype=torch.int64, device=alive.device)
-    a[:n] = alive
-    shifts = torch.arange(32, dtype=torch.int64, device=alive.device)
+class AliveTable(NamedTuple):
+    """What ``rev_alive_lookup`` reads: ``words`` int32 [ceil(n/32)], bit i
+    of word j = flag 32 j + i; ``summary`` int32 [a multiple of 4, at least
+    4], bit g set iff any flag of group g (flags g*G .. g*G + G - 1) is set,
+    zero past the last group; ``group_log2`` = log2 G."""
+
+    words: torch.Tensor
+    summary: torch.Tensor
+    group_log2: int
+
+
+def summary_group_log2(n: int, budget: int = SUMMARY_BUDGET_BYTES) -> int:
+    """log2 of the smallest power-of-two group size G >= 32 whose summary
+    over ``n`` flags fits ``budget`` bytes."""
+    if budget < 16:
+        raise ValueError("summary budget below 16 bytes")
+    g = 5
+    while 4 * _summary_words(n, g) > budget:
+        g += 1
+    return g
+
+
+def _summary_words(n: int, group_log2: int) -> int:
+    """Summary length in words: one bit per group, padded to 16 bytes."""
+    words = -(-n // (32 << group_log2))
+    return max(4, -(-words // 4) * 4)
+
+
+def _pack_bits(flags: torch.Tensor, n_words: int) -> torch.Tensor:
+    """Bool [m] (m <= 32 n_words) -> int32 [n_words], LSB first."""
+    a = torch.zeros(n_words * 32, dtype=torch.int64, device=flags.device)
+    a[: flags.shape[0]] = flags
+    shifts = torch.arange(32, dtype=torch.int64, device=flags.device)
     words = (a.view(-1, 32) << shifts).sum(dim=1)
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
         torch.int32
     )
+
+
+def alive_table_reference(
+    alive: torch.Tensor, budget: int = SUMMARY_BUDGET_BYTES
+) -> AliveTable:
+    """Plain twin of :func:`alive_table`."""
+    n = alive.shape[0]
+    g = summary_group_log2(n, budget)
+    groups = -(-n // (1 << g))
+    flags = torch.zeros(groups << g, dtype=torch.bool, device=alive.device)
+    flags[:n] = alive
+    group_any = flags.view(groups, 1 << g).any(dim=1)
+    return AliveTable(
+        _pack_bits(alive, -(-n // 32)),
+        _pack_bits(group_any, _summary_words(n, g)),
+        g,
+    )
+
+
+def alive_table(
+    alive: torch.Tensor, budget: int = SUMMARY_BUDGET_BYTES
+) -> AliveTable:
+    """The lookup table of a bool flag array [n]: packed words and group
+    summary, in one pass over the flags. ``budget`` (at most
+    ``SUMMARY_BUDGET_BYTES``) bounds the summary's size and so sets G."""
+    if alive.dtype != torch.bool or alive.dim() != 1:
+        raise ValueError("alive_table: alive must be a 1-D bool tensor")
+    if not 16 <= budget <= SUMMARY_BUDGET_BYTES:
+        raise ValueError(f"alive_table: budget must lie in 16..{SUMMARY_BUDGET_BYTES}")
+    if _on_cpu("alive_table", alive):
+        return alive_table_reference(alive, budget)
+    from . import _build
+
+    _check_cuda("alive_table", alive)
+    n = alive.shape[0]
+    g = summary_group_log2(n, budget)
+    n_words = -(-n // 32)
+    words = torch.empty(n_words, dtype=torch.int32, device=alive.device)
+    summary = torch.empty(_summary_words(n, g), dtype=torch.int32, device=alive.device)
+    lib = _build.library("lcc_superstep")
+    status = lib.fpm_pack_alive(
+        alive.data_ptr(), n, words.data_ptr(), n_words, summary.data_ptr(),
+        summary.shape[0], g, torch.cuda.current_stream(alive.device).cuda_stream,
+    )
+    _build.check(status, "pack_alive")
+    launches["pack_alive"] += 1
+    return AliveTable(words, summary, g)
+
+
+def pack_alive(alive: torch.Tensor) -> torch.Tensor:
+    """Bit-pack a bool flag array into int32 words, LSB first: bit i of
+    word j is ``alive[32 j + i]`` (the JAX package's uint32 words, viewed as
+    int32). The words of :func:`alive_table`."""
+    return alive_table(alive).words
 
 
 def row_or(x: torch.Tensor) -> torch.Tensor:
@@ -77,31 +166,31 @@ def _on_cpu(what: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
-def rev_alive_lookup_reference(
-    rev: torch.Tensor, alive_bits: torch.Tensor
-) -> torch.Tensor:
-    """Plain twin of :func:`rev_alive_lookup`."""
-    word = alive_bits[rev >> 5]
+def rev_alive_lookup_reference(rev: torch.Tensor, table: AliveTable) -> torch.Tensor:
+    """Plain twin of :func:`rev_alive_lookup`: the word gather alone."""
+    word = table.words[rev >> 5]
     return ((word >> (rev & 31)) & 1).bool()
 
 
-def rev_alive_lookup(rev: torch.Tensor, alive_bits: torch.Tensor) -> torch.Tensor:
-    """Alive flag of each slot's reverse edge: ``rev`` [n, w] int32 slot
-    indices into the packed int32 words ``alive_bits`` -> [n, w] bool.
-    Pad slots must index a zero bit."""
-    if rev.dtype != torch.int32 or alive_bits.dtype != torch.int32:
-        raise ValueError("rev_alive_lookup: rev and alive_bits must be int32")
+def rev_alive_lookup(rev: torch.Tensor, table: AliveTable) -> torch.Tensor:
+    """Alive flag of each slot's reverse edge: ``rev`` int32 slot indices
+    (any shape; the engine passes all buckets as one flat tensor) into the
+    flags of ``table`` -> bool of the same shape. Every index must be below
+    the table's flag count; pad slots must index a zero flag."""
+    if rev.dtype != torch.int32 or not isinstance(table, AliveTable):
+        raise ValueError("rev_alive_lookup: needs int32 rev and an AliveTable")
     if _on_cpu("rev_alive_lookup", rev):
-        return rev_alive_lookup_reference(rev, alive_bits)
+        return rev_alive_lookup_reference(rev, table)
     from . import _build
 
-    _check_cuda("rev_alive_lookup", rev, alive_bits)
+    _check_cuda("rev_alive_lookup", rev, table.words, table.summary)
     out = torch.empty(rev.shape, dtype=torch.bool, device=rev.device)
     if rev.numel() == 0:
         return out
     lib = _build.library("lcc_superstep")
     status = lib.fpm_rev_alive_lookup(
-        rev.data_ptr(), alive_bits.data_ptr(), out.data_ptr(), rev.numel(),
+        rev.data_ptr(), table.words.data_ptr(), table.summary.data_ptr(),
+        table.summary.shape[0], table.group_log2, out.data_ptr(), rev.numel(),
         torch.cuda.current_stream(rev.device).cuda_stream,
     )
     _build.check(status, "rev_alive_lookup")

@@ -9,7 +9,11 @@
   normalizes them;
 * the CLI end to end on a saved s11 graph DB.
 
-Everything compared is an integer count, set or file row: exact equality.
+The JAX engines get the JAX package's graphs and patterns
+(``tools/make_golden.py::build_config``), the port its own
+(``fuzzypatternmatching_tpu_torch.golden.build_config``), built from the
+same R-MAT stream and pattern files. Everything compared is an integer
+count, set or file row: exact equality.
 """
 
 import json
@@ -22,16 +26,17 @@ import torch
 
 from fuzzypatternmatching_tpu.engine.driver import MatchEngine as JaxMatchEngine
 from fuzzypatternmatching_tpu.graph import storage
-from fuzzypatternmatching_tpu.io.results import write_results
+from fuzzypatternmatching_tpu_torch import golden
 from fuzzypatternmatching_tpu_torch.cli import run_pattern_matching
 from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
+from fuzzypatternmatching_tpu_torch.io.results import write_results
 
 from test_golden_results import _tree_files
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_BASE = os.path.join(REPO, "examples", "results_golden")
 sys.path.insert(0, os.path.join(REPO, "tools"))
-from make_golden import build_config  # noqa: E402
+from make_golden import build_config as jax_build_config  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -40,9 +45,11 @@ def golden_meta():
         return json.load(f)
 
 
-def _config(golden_meta, name):
+def _config(golden_meta, name, build=golden.build_config):
+    """The port's (graph, labels, pattern, constraints) of a golden
+    configuration; ``build=jax_build_config`` gives the JAX package's."""
     cfg = golden_meta["configs"][name]
-    return build_config(cfg["scale"], os.path.join(REPO, cfg["corpus"]))
+    return build(cfg["scale"], os.path.join(REPO, cfg["corpus"]))
 
 
 def _rows(result):
@@ -58,10 +65,13 @@ def _rows(result):
 
 @pytest.mark.parametrize("compact", [True, False])
 def test_match_engine_matches_jax_tree_s11(golden_meta, compact):
+    gj, labels_j, pattern_j, constraints_j = _config(
+        golden_meta, "tree_s11", jax_build_config
+    )
     g, labels, pattern, constraints = _config(golden_meta, "tree_s11")
     nr = golden_meta["num_ranks"]
     rj = JaxMatchEngine(
-        g, labels, pattern, constraints, num_ranks=nr, compact=compact
+        gj, labels_j, pattern_j, constraints_j, num_ranks=nr, compact=compact
     ).run()
     rt = MatchEngine(
         g, labels, pattern, constraints, num_ranks=nr, compact=compact,
@@ -101,7 +111,8 @@ def test_match_engine_result_tree_matches_golden(
 
 
 def test_cli_end_to_end_tree_s11(golden_meta, tmp_path):
-    g, labels, _, _ = _config(golden_meta, "tree_s11")
+    """The JAX package's storage writes the DB; the port's CLI reads it."""
+    g, _, _, _ = _config(golden_meta, "tree_s11", jax_build_config)
     db = str(tmp_path / "db")
     storage.save(g, db, num_shards=golden_meta["num_ranks"])
     out = str(tmp_path / "out")
@@ -119,7 +130,7 @@ def test_cuda_device_raises_without_a_card(golden_meta, tmp_path):
     with pytest.raises(RuntimeError):
         MatchEngine(g, labels, pattern, constraints, device="cuda")
     db = str(tmp_path / "db")
-    storage.save(g, db, num_shards=1)
+    storage.save(_config(golden_meta, "tree_s11", jax_build_config)[0], db, num_shards=1)
     with pytest.raises(RuntimeError):
         run_pattern_matching.main([
             "-i", db, "-p", os.path.join(REPO, "examples", "patterns"),

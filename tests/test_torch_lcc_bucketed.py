@@ -1,7 +1,9 @@
 """The torch BucketedLccEngine against the JAX BucketedLccEngine on the CPU,
 both in its default mode and with its Pallas superstep in interpret mode:
 same slot layout, same per-superstep rows (with per-rank counters), same
-died flag, same tv and alive sets — all integers, compared exactly."""
+died flag, same tv and alive sets — all integers, compared exactly. Each
+engine gets its own package's Graph and PatternGraph, built from the same
+numpy edges and pattern files."""
 
 import numpy as np
 import pytest
@@ -10,10 +12,18 @@ from fuzzypatternmatching_tpu.engine.lcc_bucketed import (
     BucketedLccEngine as JaxEngine,
 )
 from fuzzypatternmatching_tpu.generators.rmat import RmatParams, generate_edges
-from fuzzypatternmatching_tpu.graph.csr import degree_labels, from_edges
-from fuzzypatternmatching_tpu.pattern.pattern_graph import load_pattern_graph
+from fuzzypatternmatching_tpu.graph.csr import degree_labels
+from fuzzypatternmatching_tpu.graph.csr import from_edges as jax_from_edges
+from fuzzypatternmatching_tpu.pattern.pattern_graph import (
+    load_pattern_graph as jax_load_pattern_graph,
+)
 from fuzzypatternmatching_tpu_torch.engine.lcc_bucketed import (
     BucketedLccEngine,
+)
+from fuzzypatternmatching_tpu_torch.graph.csr import Graph, from_edges
+from fuzzypatternmatching_tpu_torch.pattern.pattern_graph import (
+    PatternGraph,
+    load_pattern_graph,
 )
 
 from test_fuzzy import write_fuzzy_pattern
@@ -30,7 +40,7 @@ CONFIGS = {
 }
 
 
-def _rmat(scale):
+def _rmat_edges(scale):
     """tests/test_bucketed.py recipe: 4-rank unscrambled R-MAT stream."""
     parts = [
         generate_edges(
@@ -41,24 +51,35 @@ def _rmat(scale):
     ]
     src = np.concatenate([p[0] for p in parts])
     dst = np.concatenate([p[1] for p in parts])
-    return from_edges(src, dst, num_vertices=1 << scale)
+    return src, dst
 
 
 @pytest.fixture(scope="module")
 def graph():
-    g = _rmat(10)
-    return g, degree_labels(g)
+    """(JAX graph, labels, port graph) from the same numpy edges."""
+    src, dst = _rmat_edges(10)
+    g = jax_from_edges(src, dst, num_vertices=1 << 10)
+    gt = from_edges(src, dst, num_vertices=1 << 10)
+    assert isinstance(gt, Graph)
+    return g, degree_labels(g), gt
+
+
+def _patterns(prefix):
+    """(JAX pattern, port pattern) from the same files."""
+    pt = load_pattern_graph(prefix)
+    assert isinstance(pt, PatternGraph)
+    return jax_load_pattern_graph(prefix), pt
 
 
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
-    return load_pattern_graph(write_tree_pattern(tmp_path_factory.mktemp("t")))
+    return _patterns(write_tree_pattern(tmp_path_factory.mktemp("t")))
 
 
-def _engines(graph, pattern, jax_mode="xla", **kw):
-    g, labels = graph
-    jx = JaxEngine(g, labels, pattern, **JAX_MODES[jax_mode], **kw)
-    pt = BucketedLccEngine(g, labels, pattern, device="cpu", **kw)
+def _engines(graph, patterns, jax_mode="xla", **kw):
+    g, labels, gt = graph
+    jx = JaxEngine(g, labels, patterns[0], **JAX_MODES[jax_mode], **kw)
+    pt = BucketedLccEngine(gt, labels, patterns[1], device="cpu", **kw)
     return jx, pt
 
 
@@ -100,7 +121,7 @@ def test_init_and_continuation_match_jax(graph, tree, config, jax_mode):
     jx, pt = _engines(graph, tree, jax_mode, **CONFIGS[config])
     st_j, rows_j, died_j = jx.lcc_call(jx.init_state(), True)
     st_t, rows_t, died_t = pt.lcc_call(pt.init_state(), True)
-    assert len(rows_t) == tree.diameter
+    assert len(rows_t) == tree[1].diameter
     _same_rows(rows_j, rows_t)
     assert died_j == died_t
     _same_state(jx, st_j, pt, st_t)
@@ -177,11 +198,11 @@ def test_lazy_state_and_updates_match_jax(graph, tree):
 def test_fuzzy_optional_edges_match_jax(graph, tmp_path):
     """A template with optional edges and a minimum count: the keep mask's
     bit-count loop."""
-    g, labels = graph
-    fuzzy = load_pattern_graph(write_fuzzy_pattern(tmp_path, require_optional=True))
-    assert (fuzzy.min_optional_edge_count > 0).any()
+    g, labels, gt = graph
+    fuzzy = _patterns(write_fuzzy_pattern(tmp_path, require_optional=True))
+    assert (fuzzy[1].min_optional_edge_count > 0).any()
     lab = np.minimum(labels, 3)
-    jx, pt = _engines((g, lab), fuzzy, num_ranks=2)
+    jx, pt = _engines((g, lab, gt), fuzzy, num_ranks=2)
     st_j, rows_j, died_j = jx.lcc_call(jx.init_state(), True)
     st_t, rows_t, died_t = pt.lcc_call(pt.init_state(), True)
     _same_rows(rows_j, rows_t)
@@ -190,12 +211,13 @@ def test_fuzzy_optional_edges_match_jax(graph, tmp_path):
 
 
 def test_unported_modes_raise(graph, tree):
-    g, labels = graph
+    _, labels, gt = graph
+    pattern = tree[1]
     with pytest.raises(ValueError):
-        BucketedLccEngine(g, labels, tree, device="cpu", counting=True)
-    allow = np.zeros((2, tree.vertex_count), dtype=np.uint32)
+        BucketedLccEngine(gt, labels, pattern, device="cpu", counting=True)
+    allow = np.zeros((2, pattern.vertex_count), dtype=np.uint32)
     with pytest.raises(ValueError):
         BucketedLccEngine(
-            g, labels, tree, device="cpu",
-            edge_meta=(allow, np.zeros(g.num_edges, dtype=np.int64)),
+            gt, labels, pattern, device="cpu",
+            edge_meta=(allow, np.zeros(gt.num_edges, dtype=np.int64)),
         )
