@@ -21,13 +21,35 @@ NVIDIA GPU:
      state, and time kernel and twin with CUDA events; time the lookup
      again with rev sorted (the random-L2-sector check);
   8. one search of each mode under torch.profiler: device time against
-     wall time, and the largest device items.
+     wall time, and the largest device items;
+  9. hold the NLCC walk kernels (expand_frontier, forward_winners) against
+     their twins, exactly, on seeded inputs: empty frontiers, zero-degree
+     tokens, hub rows of 20,000 neighbours, 1, 4 and 5,000 ranks, every
+     lane filtered and none; keys repeating within and across hops, with
+     earlier keys;
+ 10. run tree_s13 and cycle_s13 with every NLCC constraint on the device
+     (nlcc_mode="device") and assert the committed anchors;
+ 11. the s21 cycle search (the graph and labels of phase 5, the
+     examples/patterns_cycle corpus): one engine with nlcc_mode="device",
+     once warm and three times timed, asserting 169/346/56 and 105,906,296
+     traversed edges and that both walk kernels were launched; then one
+     search each with nlcc_mode="host" and the default "auto";
+ 12. each constraint of both s21 corpora on the state after the first LCC
+     call, on the card and on the host engine: equal outcomes (forwarded
+     keys included) and both placements' times, and the host time of the
+     card's constraint 0 by function (cProfile); the walk kernels against
+     their twins at the s21 cycle hop shapes, timed by CUDA-graph replay
+     beside their bounds;
+ 13. one s21 cycle search (device mode) under torch.profiler, and one
+     under cProfile (host time by function).
 
 Any failure ends the run with a non-zero exit code, and so does a run
 without a CUDA device or without the rest of the repository. The last two
 lines are one JSON object with a record per kernel (launches during the
-main-path search, largest difference from the twin, times and the least
-time the card could take) and the result line ``{"ok": true, ...}``.
+main-path search: the s21 tree search for the superstep kernels, the s21
+cycle device search for the walk kernels; largest difference from the
+twin, times and the least time the card could take) and the result line
+``{"ok": true, ...}``.
 
 Usage: python3 chip_smoke.py   (from the repository root; one CUDA card)
 """
@@ -43,13 +65,20 @@ import numpy as np
 import torch
 
 from fuzzypatternmatching_tpu_torch import native
+from fuzzypatternmatching_tpu_torch.engine import nlcc
 from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
+from fuzzypatternmatching_tpu_torch.engine.result import MatchResult
 from fuzzypatternmatching_tpu_torch.generators.rmat import rmat_all_ranks
 from fuzzypatternmatching_tpu_torch.golden import GOLDEN_BASE, REPO, build_config
 from fuzzypatternmatching_tpu_torch.graph.csr import degree_labels, from_edges
 from fuzzypatternmatching_tpu_torch.ops import _build
 from fuzzypatternmatching_tpu_torch.ops import lcc_superstep as ops
+from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
 from fuzzypatternmatching_tpu_torch.pattern.builtin import load_tree_pattern
+from fuzzypatternmatching_tpu_torch.pattern.nonlocal_constraint import (
+    load_nonlocal_constraints,
+)
+from fuzzypatternmatching_tpu_torch.pattern.pattern_graph import load_pattern_graph
 
 S21_ANCHORS = {
     "active_vertices": 147,
@@ -57,12 +86,26 @@ S21_ANCHORS = {
     "subgraphs": 74,
     "traversed_edges": 13207467,
 }
+S21_CYCLE_ANCHORS = {
+    "active_vertices": 169,
+    "active_edges": 346,
+    "subgraphs": 56,
+    "traversed_edges": 105906296,
+}
+CYCLE_CORPUS = os.path.join(REPO, "examples", "patterns_cycle", "0", "pattern")
 KERNELS = {
     "pack_alive": "fuzzypatternmatching_tpu/ops/lcc_superstep.py:187",
     "rev_alive_lookup": "fuzzypatternmatching_tpu/ops/lcc_superstep.py:71",
     "gather_accept_or": "fuzzypatternmatching_tpu/ops/lcc_superstep.py:105",
+    "expand_frontier": "fuzzypatternmatching_tpu/engine/nlcc_device.py:105",
+    "forward_winners": "fuzzypatternmatching_tpu/engine/nlcc_device.py:188",
 }
-KERNEL_SOURCE = "fuzzypatternmatching_tpu_torch/csrc/lcc_superstep.cu"
+WALK_KERNELS = ("expand_frontier", "forward_winners")
+KERNEL_SOURCES = {
+    k: "fuzzypatternmatching_tpu_torch/csrc/"
+    + ("nlcc_frontier.cu" if k in WALK_KERNELS else "lcc_superstep.cu")
+    for k in KERNELS
+}
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 DENSITIES = (0.005, 0.6, 1.0)
 
@@ -187,10 +230,12 @@ def run_s21(g, labels, pattern, constraints, dev, compact):
     log(f"{tag} engine build (host ELL layout + upload): "
         f"{time.perf_counter() - t0:.3f} s, {engine.lcc.num_slots} slots")
     ops.reset_launches()
+    nf.reset_launches()
     r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 compact={compact} warm")
     launches = dict(ops.launches)
     log(f"{tag} warm search: {dt:.4f} s, iterations={r.iterations}, "
-        f"{summary(r)}, kernel launches {launches}")
+        f"{summary(r)}, kernel launches {launches}, walk kernel launches "
+        f"(nlcc_mode auto) {dict(nf.launches)}")
     for k, n in launches.items():
         if n == 0:
             raise AssertionError(f"{k}: no launch during the s21 search")
@@ -359,9 +404,9 @@ def kernels_at_s21(lcc, errs):
     return results
 
 
-def profile_search(engine, tag):
-    """Phase 8: one search under torch.profiler; device busy share and the
-    largest device items (kernel self time summed by name)."""
+def profile_search(engine, tag, anchors=S21_ANCHORS, phase="[8]"):
+    """Phase 8 (and 13): one search under torch.profiler; device busy share
+    and the largest device items (kernel self time summed by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -371,7 +416,7 @@ def profile_search(engine, tag):
         r = engine.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check_anchors(r, S21_ANCHORS, f"{tag} profiled search")
+    check_anchors(r, anchors, f"{tag} profiled search")
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
@@ -379,18 +424,336 @@ def profile_search(engine, tag):
     items = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(dev_us(e) for e in items) / 1e3
     if device_ms == 0:
-        log(f"[8] {tag}: the profiler recorded no device time (not measured)")
+        log(f"{phase} {tag}: the profiler recorded no device time (not measured)")
         return
     ours = [e for e in items if any(k in e.key for k in (
         "pack_alive_kernel", "rev_alive_kernel", "gather_narrow4_kernel",
-        "gather_wide_kernel", "gather_rowwise_kernel"))]
+        "gather_wide_kernel", "gather_rowwise_kernel", "expand_count_kernel",
+        "expand_write_kernel", "winner_insert_kernel", "winner_mark_kernel"))]
     top = sorted(items, key=dev_us, reverse=True)[:8]
-    log(f"[8] {tag} profiled search: wall {wall * 1e3:.1f} ms, device "
+    log(f"{phase} {tag} profiled search: wall {wall * 1e3:.1f} ms, device "
         f"{device_ms:.2f} ms (busy {100 * device_ms / (wall * 1e3):.1f} %), "
         f"{sum(e.count for e in items)} device items; the port's kernels "
         f"{sum(dev_us(e) for e in ours) / 1e3:.3f} ms in "
         f"{sum(e.count for e in ours)} launches; largest (name, ms, count): "
         f"{[(e.key[:100], round(dev_us(e) / 1e3, 3), e.count) for e in top]}")
+
+
+def walk_expand_inputs(seed, n, hubs, density, dev):
+    """Seeded inputs of expand_frontier: a CSR over 3,000 vertices with
+    zero-degree rows and a hub row of 20,000 neighbours (vertex 7), a
+    frontier of ``n`` tokens (``hubs`` of them on the hub), ok bits set at
+    ``density`` (bit 31 on half the vertices), and a third of the tokens
+    with neighbours coming from their first neighbour."""
+    rng = np.random.RandomState(seed)
+    v = 3000
+    deg = rng.randint(0, 12, size=v)
+    deg[rng.rand(v) < 0.2] = 0
+    deg[7] = 20000
+    ptr = np.zeros(v + 1, dtype=np.int64)
+    np.cumsum(deg, out=ptr[1:])
+    col = rng.randint(0, v, size=int(ptr[-1])).astype(np.int32)
+    ok = (rng.rand(v, 31) < density).astype(np.uint64)
+    bits = (ok << np.arange(31, dtype=np.uint64)).sum(axis=1)
+    bits[rng.rand(v) < 0.5] |= np.uint64(1 << 31)
+    cur = rng.randint(0, v, size=n).astype(np.int32)
+    cur[rng.permutation(n)[:hubs]] = 7
+    parent = rng.randint(0, v, size=n).astype(np.int32)
+    back = np.nonzero(ptr[cur + 1] > ptr[cur])[0][::3]
+    parent[back] = col[ptr[cur[back]]]
+    arrays = (ptr, col, cur, parent, bits.astype(np.uint32).view(np.int32))
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def walk_winner_inputs(seed, n_lanes, n_keys, n_seen, dev):
+    """Seeded inputs of forward_winners: ``n_lanes`` keys drawn from
+    ``n_keys`` distinct ones, parents repeating within a key, and earlier
+    keys (some among this hop's, ``n_seen`` others)."""
+    rng = np.random.RandomState(seed)
+    pool = np.unique(rng.randint(0, 1 << 40, size=max(n_keys, 1), dtype=np.int64))
+    keys = pool[rng.randint(0, len(pool), size=n_lanes)]
+    parents = rng.randint(0, 50, size=n_lanes).astype(np.int32)
+    seen = np.concatenate([
+        pool[rng.rand(len(pool)) < 0.3],
+        np.unique(rng.randint(1 << 41, 1 << 42, size=n_seen, dtype=np.int64)),
+    ])
+    rng.shuffle(seen)
+    return [torch.from_numpy(a).to(dev) for a in (keys, parents, seen)]
+
+
+def expansion_err(got, want):
+    if got.lanes != want.lanes:
+        raise AssertionError(f"lanes {got.lanes} != {want.lanes}")
+    return max(max_err(g, w) for g, w in zip(got[:3], want[:3]))
+
+
+def compare_walk_kernels_small(dev, errs):
+    """Phase 9: the NLCC walk kernels against their twins on seeded inputs."""
+    expand_cases = [
+        # (tokens, hub tokens, ok-bit density, h_next, ranks, drop parent)
+        (0, 0, 0.5, 1, 1, False),
+        (1, 1, 0.5, 2, 4, True),
+        (1, 0, 0.5, 2, 1, True),
+        (1000, 3, 0.5, 3, 1, True),
+        (1000, 3, 0.5, 3, 4, False),
+        (1000, 0, 0.0, 1, 4, True),
+        (1000, 0, 1.0, 1, 1, True),
+        (1000, 2, 0.3, -1, 4, False),
+        (50000, 40, 0.02, 5, 1, True),
+        (50000, 40, 0.02, 5, 5000, True),
+    ]
+    for i, (n, hubs, density, h, r, drop) in enumerate(expand_cases):
+        args = walk_expand_inputs(i, n, hubs, density, dev)
+        got = nf.expand_frontier(*args, h, r, drop)
+        torch.cuda.synchronize()
+        want = nf.expand_frontier_reference(*args, h, r, drop)
+        errs["expand_frontier"] = max(errs["expand_frontier"], expansion_err(got, want))
+    for i, case in enumerate([(0, 5, 0), (1, 1, 0), (1000, 37, 10), (100000, 5000, 3000),
+                              (200000, 150000, 50000)]):
+        args = walk_winner_inputs(i, *case, dev)
+        got = nf.forward_winners(*args)
+        torch.cuda.synchronize()
+        e = max_err(got, nf.forward_winners_reference(*args))
+        errs["forward_winners"] = max(errs["forward_winners"], e)
+    # two hops: the first hop's winners join the earlier keys
+    keys, parents, seen = walk_winner_inputs(9, 300000, 40000, 20000, dev)
+    win = nf.forward_winners(keys, parents, seen)
+    seen = torch.cat([seen, keys[win]])
+    keys2 = torch.cat([keys[: 100000], keys[: 50000] + 1])
+    parents2 = torch.cat([parents[: 100000], parents[: 50000]])
+    got = nf.forward_winners(keys2, parents2, seen)
+    torch.cuda.synchronize()
+    e = max_err(got, nf.forward_winners_reference(keys2, parents2, seen))
+    errs["forward_winners"] = max(errs["forward_winners"], e)
+    check_errs(errs, "at small shapes (walk kernels)")
+    log(f"[9] walk kernels equal their twins ({len(expand_cases)} expansions: "
+        f"0..50,000 tokens, hub rows of 20,000, ranks 1/4/5000, filters none/all/-1; "
+        f"winners: 0..300,000 lanes, repeats within and across hops): "
+        f"{ {k: errs[k] for k in WALK_KERNELS} }")
+
+
+def host_profile(fn, tag, top=12):
+    """Run ``fn`` once under cProfile and log the functions with the most
+    host time of their own (name, calls, own s, cumulative s)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:top]
+    total = sum(v[2] for v in stats.values())
+    log(f"{tag} host profile ({total:.3f} s of own time in all): " + str([
+        (f"{os.path.basename(f)}:{line}({name})", nc, round(tt, 4), round(ct, 4))
+        for (f, line, name), (_, nc, tt, ct, _) in rows
+    ]))
+
+
+def tp_rows(r):
+    """(iteration, constraint, seconds, messages) of each TP row."""
+    return [(x.itr, x.step, round(x.seconds, 4), x.messages) for x in r.rows if x.phase == "TP"]
+
+
+def run_s21_cycle(g, labels, dev):
+    """Phase 11: the s21 cycle search, device mode warm and timed, then one
+    search each in host and auto mode on the same engine."""
+    pattern = load_pattern_graph(CYCLE_CORPUS)
+    constraints = load_nonlocal_constraints(CYCLE_CORPUS, pattern.vertex_data)
+    t0 = time.perf_counter()
+    engine = MatchEngine(g, labels, pattern, constraints, nlcc_mode="device", device=dev)
+    torch.cuda.synchronize()
+    log(f"[11] s21 cycle engine build: {time.perf_counter() - t0:.3f} s, "
+        f"{engine.lcc.num_slots} slots, {len(constraints)} constraints")
+    ops.reset_launches()
+    nf.reset_launches()
+    r, dt, lp, tp = timed_search(engine, S21_CYCLE_ANCHORS, "s21 cycle device warm")
+    launches = {**ops.launches, **nf.launches}
+    log(f"[11] device warm search: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s), "
+        f"iterations={r.iterations}, {summary(r)}, kernel launches {launches}, "
+        f"TP rows {tp_rows(r)}")
+    for k in WALK_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"{k}: no launch during the s21 cycle device search")
+    times = []
+    for i in range(3):
+        r, dt, lp, tp = timed_search(engine, S21_CYCLE_ANCHORS, f"s21 cycle device run {i}")
+        times.append(dt)
+        log(f"[11] device timed search {i}: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s, "
+            f"other {dt - lp - tp:.4f} s), {r.traversed_edges / dt / 1e6:.2f} M traversed "
+            f"edges/s, TP rows {tp_rows(r)}, host loadavg {os.getloadavg()}")
+    for mode in ("host", "auto"):
+        engine.nlcc_mode = mode
+        nf.reset_launches()
+        r, dt, lp, tp = timed_search(engine, S21_CYCLE_ANCHORS, f"s21 cycle {mode}")
+        log(f"[11] {mode} search (nlcc_device_min {engine.nlcc_device_min}): {dt:.4f} s "
+            f"(LP {lp:.4f} s, TP {tp:.4f} s), TP rows {tp_rows(r)}, walk kernel "
+            f"launches {dict(nf.launches)}, host loadavg {os.getloadavg()}")
+        if mode == "auto" and nf.launches["expand_frontier"] == 0:
+            raise AssertionError("auto mode kept s21 cycle constraint 0 on the host")
+    engine.nlcc_mode = "device"
+    log(f"[11] anchors OK on every run {S21_CYCLE_ANCHORS}; device best {min(times):.4f} s")
+    return engine, {k: launches[k] for k in WALK_KERNELS}
+
+
+def sorted_rows(subgraphs):
+    return sorted(map(tuple, subgraphs.tolist())) if subgraphs is not None else []
+
+
+def assert_outcome_equal(h, d, what):
+    """The comparison of tests/test_nlcc_device.py::_assert_outcome_equal."""
+    same = (
+        np.array_equal(h.sources, d.sources)
+        and np.array_equal(h.validated, d.validated)
+        and h.messages == d.messages
+        and np.array_equal(h.msg_per_rank, d.msg_per_rank)
+        and sorted(h.edge_marks) == sorted(d.edge_marks)
+        and sorted_rows(h.subgraphs) == sorted_rows(d.subgraphs)
+    )
+    if not same:
+        raise AssertionError(f"{what}: device and host outcomes differ "
+                             f"(messages {d.messages} / {h.messages})")
+
+
+def first_lcc_state(engine):
+    """(AliveCsr, tv) after the search's first LCC call, as MatchEngine
+    builds them for iteration 0's constraints."""
+    state, _ = engine._lcc_phase(engine.lcc.init_state(), True, 0, MatchResult())
+    tv = engine.lcc.tv_host(state).copy()
+    arow, acol = engine.lcc.alive_pairs(state)
+    return nlcc.AliveCsr.from_pairs(arow, acol, tv != 0, engine.graph.num_vertices), tv
+
+
+def constraint_placements(engine, tag, record=None):
+    """Phase 12: each constraint of the engine's corpus on the state after
+    the first LCC call, on the card (warm, then 3 timed runs) and on the
+    host engine (3 runs, or 1 where one takes over a second); outcomes and
+    forwarded keys must be equal. ``record`` (a constraint index) keeps the
+    walk-kernel calls of one device run of that constraint."""
+    acsr, tv = first_lcc_state(engine)
+    V, labels, dn = engine.graph.num_vertices, engine.labels, engine._dev_nlcc
+    fw = nlcc.ForwardedSets.empty()
+    calls = {k: [] for k in WALK_KERNELS}
+    rows = []
+    for pl, c in enumerate(engine.constraints):
+        cand = engine._cands[pl]
+        first = dn._first_expansion(acsr, nlcc.token_sources(c, labels, tv, cand))
+        fw.reset_for(c, labels, tv, V)
+        keys_in = fw.keys.copy()
+        kw = {"candidates": cand}
+
+        def host_run(f):
+            if c.is_tds:
+                return nlcc.run_tds(acsr, labels, tv, c, V, forwarded=f, num_ranks=engine.num_ranks,
+                                    source_batch=engine.source_batch, **kw)
+            return nlcc.run_nem(acsr, labels, tv, c, V, forwarded=f, num_ranks=engine.num_ranks, **kw)
+
+        def dev_run(f):
+            fn = dn.run_tds if c.is_tds else dn.run_nem
+            out = fn(acsr, labels, tv, c, V, forwarded=f, **kw)
+            torch.cuda.synchronize()
+            return out
+
+        host_s = []
+        while len(host_s) < 3 and (not host_s or host_s[0] < 1.0):
+            f_h = nlcc.ForwardedSets(keys_in.copy())
+            t0 = time.perf_counter()
+            out_h = host_run(f_h)
+            host_s.append(time.perf_counter() - t0)
+        dev_run(nlcc.ForwardedSets(keys_in.copy()))  # warm
+        dev_s = []
+        for _ in range(3):
+            f_d = nlcc.ForwardedSets(keys_in.copy())
+            t0 = time.perf_counter()
+            out_d = dev_run(f_d)
+            dev_s.append(time.perf_counter() - t0)
+        assert_outcome_equal(out_h, out_d, f"{tag} constraint {pl}")
+        if not np.array_equal(f_h.keys, f_d.keys):
+            raise AssertionError(f"{tag} constraint {pl}: forwarded keys differ")
+        if record == pl:
+            host_profile(lambda: dev_run(nlcc.ForwardedSets(keys_in.copy())),
+                         f"[12] {tag} constraint {pl} on the card")
+            originals = {k: getattr(nf, k) for k in WALK_KERNELS}
+
+            def recorder(name):
+                def call(*a, **k):
+                    out = originals[name](*a, **k)
+                    calls[name].append((a, out))
+                    return out
+                return call
+
+            for k in WALK_KERNELS:
+                setattr(nf, k, recorder(k))
+            try:
+                dev_run(nlcc.ForwardedSets(keys_in.copy()))
+            finally:
+                for k, fn in originals.items():
+                    setattr(nf, k, fn)
+        rows.append((pl, "tds" if c.is_tds else "nem", first, out_h.messages,
+                     len(f_d.keys), min(host_s), min(dev_s)))
+        log(f"[12] {tag} constraint {pl} ({rows[-1][1]}, cycle_length {c.cycle_length}): "
+            f"first expansion {first} lanes, messages {out_h.messages}, "
+            f"{int(out_h.validated.sum())}/{len(out_h.validated)} validated, forwarded keys "
+            f"{len(f_d.keys)}; host {[round(x, 4) for x in host_s]} s, device "
+            f"{[round(x, 4) for x in dev_s]} s; equal outcomes")
+        fw = f_d
+    return rows, calls
+
+
+def walk_kernels_at_s21(calls, errs):
+    """Phase 12: each recorded walk-kernel call of one s21 constraint run
+    against its twin, and both timed by CUDA-graph replay, beside the
+    bound (bytes read and written once over the HBM rate) and the count
+    of random 32-byte sectors the call touches."""
+    totals = {k: [0.0, 0.0, 0.0] for k in WALK_KERNELS}
+    for i, (a, out) in enumerate(calls["expand_frontier"]):
+        ptr, col, cur, parent, ok_bits, h, r, drop = a
+        sizes = (out.lanes, out.tok.shape[0])
+        twin = nf.expand_frontier_reference(*a, sizes=sizes)
+        errs["expand_frontier"] = max(errs["expand_frontier"], expansion_err(out, twin))
+        every = nf.expand_frontier_reference(ptr, col, cur, parent, ok_bits, -1, 1, False,
+                                             sizes=(out.lanes, out.lanes))
+        distinct = int(torch.unique(every.nbr).numel())
+        messages = int(out.msg_per_rank.sum())
+        del twin, every
+        nbytes = 4 * out.lanes + 24 * cur.shape[0] + 4 * distinct + 8 * sizes[1] + 8 * r
+        bound = nbytes / HBM_BYTES_PER_MS
+        k_ms, p_ms, raw = time_pair(
+            lambda: nf.expand_frontier(*a, sizes=sizes),
+            lambda: nf.expand_frontier_reference(*a, sizes=sizes),
+        )
+        totals["expand_frontier"] = [
+            x + y for x, y in zip(totals["expand_frontier"], (k_ms, p_ms, bound))
+        ]
+        log(f"[12] expand_frontier call {i} (h_next {h}, drop {drop}): {cur.shape[0]} tokens, "
+            f"{out.lanes} lanes, {messages} messages, {sizes[1]} survivors, {distinct} distinct "
+            f"neighbours; kernel {raw[0]:.4f}/{raw[1]:.4f} ms, twin {raw[2]:.4f}/{raw[3]:.4f} ms, "
+            f"bound {bound:.4f} ms ({nbytes} B), {100 * bound / k_ms:.1f} % of bound; random "
+            f"ok_bits sectors {messages} ({32 * messages / HBM_BYTES_PER_MS:.4f} ms of 32-byte "
+            f"sectors at the HBM rate)")
+    for i, (a, win) in enumerate(calls["forward_winners"]):
+        keys, parents, seen = a
+        e = max_err(win, nf.forward_winners_reference(*a))
+        errs["forward_winners"] = max(errs["forward_winners"], e)
+        n, m = keys.shape[0], seen.shape[0]
+        nbytes = 13 * n + 8 * m
+        bound = nbytes / HBM_BYTES_PER_MS
+        k_ms, p_ms, raw = time_pair(
+            lambda: nf.forward_winners(*a), lambda: nf.forward_winners_reference(*a)
+        )
+        totals["forward_winners"] = [
+            x + y for x, y in zip(totals["forward_winners"], (k_ms, p_ms, bound))
+        ]
+        log(f"[12] forward_winners call {i}: {n} lanes, {m} earlier keys, {int(win.sum())} "
+            f"winners; kernel {raw[0]:.4f}/{raw[1]:.4f} ms, twin {raw[2]:.4f}/{raw[3]:.4f} ms, "
+            f"bound {bound:.4f} ms ({nbytes} B), {100 * bound / k_ms:.1f} % of bound; random "
+            f"table sectors about {m + 2 * n} (table of {nf.table_capacity(m + n)} slots)")
+    check_errs(errs, "at the s21 cycle hop shapes")
+    log(f"[12] walk kernels over one s21 cycle constraint-0 run (kernel, twin, bound ms): "
+        f"{totals}")
+    return totals
 
 
 def main() -> int:
@@ -410,31 +773,34 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.library("lcc_superstep")
-    log(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds.get('lcc_superstep', 0.0):.2f} s)")
+    _build.build_all()
+    log(f"[2] kernels built (one nvcc per source, in parallel) and loaded in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc seconds {_build.build_seconds})")
 
     errs = {k: 0 for k in KERNELS}
     compare_kernels_small(dev, errs)
+    compare_walk_kernels_small(dev, errs)
 
     with open(os.path.join(GOLDEN_BASE, "golden_meta.json")) as f:
         golden = json.load(f)
-    for name in ("tree_s13", "cycle_s13"):
-        cfg = golden["configs"][name]
-        g, labels, pattern, constraints = build_config(
-            cfg["scale"], os.path.join(REPO, cfg["corpus"])
-        )
-        t0 = time.perf_counter()
-        r = MatchEngine(
-            g, labels, pattern, constraints, num_ranks=golden["num_ranks"],
-            device=dev,
-        ).run()
-        want = {k: cfg[k] for k in ("active_vertices", "active_edges", "subgraphs")}
-        check_anchors(r, want, name)
-        if r.iterations != cfg["iterations"]:
-            raise AssertionError(f"{name}: {r.iterations} iterations, want {cfg['iterations']}")
-        log(f"[4] {name}: anchors OK {want}, iterations {r.iterations}, "
-            f"{time.perf_counter() - t0:.3f} s")
+    for mode in ("auto", "device"):
+        tag = "[4]" if mode == "auto" else "[10]"
+        for name in ("tree_s13", "cycle_s13"):
+            cfg = golden["configs"][name]
+            g, labels, pattern, constraints = build_config(
+                cfg["scale"], os.path.join(REPO, cfg["corpus"])
+            )
+            t0 = time.perf_counter()
+            r = MatchEngine(
+                g, labels, pattern, constraints, num_ranks=golden["num_ranks"],
+                nlcc_mode=mode, device=dev,
+            ).run()
+            want = {k: cfg[k] for k in ("active_vertices", "active_edges", "subgraphs")}
+            check_anchors(r, want, f"{name} nlcc_mode={mode}")
+            if r.iterations != cfg["iterations"]:
+                raise AssertionError(f"{name}: {r.iterations} iterations, want {cfg['iterations']}")
+            log(f"{tag} {name} nlcc_mode={mode}: anchors OK {want}, iterations "
+                f"{r.iterations}, {time.perf_counter() - t0:.3f} s")
 
     log(f"[5] native library available: {native.available()}")
     t0 = time.perf_counter()
@@ -453,6 +819,18 @@ def main() -> int:
     times = kernels_at_s21(full.lcc, errs)["post-init"]
     profile_search(compact, "s21 compact")
     profile_search(full, "s21 compact=False")
+    del full
+
+    cycle, walk_launches = run_s21_cycle(g, labels, dev)
+    launches.update(walk_launches)
+    tree_rows, _ = constraint_placements(compact, "s21 tree")
+    cycle_rows, calls = constraint_placements(cycle, "s21 cycle", record=0)
+    times.update(walk_kernels_at_s21(calls, errs))
+    for tag, rows in (("tree", tree_rows), ("cycle", cycle_rows)):
+        log(f"[12] s21 {tag} placements (constraint, kind, first expansion, messages, "
+            f"forwarded keys, host s, device s): {rows}")
+    profile_search(cycle, "s21 cycle nlcc_mode=device", S21_CYCLE_ANCHORS, "[13]")
+    host_profile(cycle.run, "[13] s21 cycle nlcc_mode=device search")
 
     bad = sorted(
         k for k in sys.modules
@@ -467,7 +845,7 @@ def main() -> int:
         {
             "name": k,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "source": KERNEL_SOURCES[k],
             "replaces": KERNELS[k],
             "launches": launches[k],
             "max_abs_err": errs[k],

@@ -6,9 +6,10 @@ NLCC with source invalidation, interleaved LCC re-runs after source
 deletions, global fixpoint. LCC runs on the bucketed engine
 (``engine/lcc_bucketed.py``) on the given device, with the compact
 continuation: after the global init superstep the remaining supersteps run
-on an engine rebuilt over the pruned subgraph, on the same device. NLCC
-runs on the host engine (``engine/nlcc.py``, the port's copy of the JAX
-package's).
+on an engine rebuilt over the pruned subgraph, on the same device. Each
+NLCC constraint runs on the device engine (``engine/nlcc_device.py``) or
+the host engine (``engine/nlcc.py``, the port's copy of the JAX
+package's), placed by ``nlcc_mode``; the placement never changes a result.
 """
 
 from __future__ import annotations
@@ -23,8 +24,21 @@ from ..graph.csr import Graph, from_edges
 from ..pattern.nonlocal_constraint import NonLocalConstraint
 from ..pattern.pattern_graph import PatternGraph
 from .lcc_bucketed import BucketedLccEngine
-from .nlcc import AliveCsr, ForwardedSets, invalidate_sources, run_nem, run_tds
+from .nlcc import (
+    AliveCsr,
+    ForwardedSets,
+    invalidate_sources,
+    run_nem,
+    run_tds,
+    token_sources,
+)
+from .nlcc_device import DeviceNlcc
 from .result import MatchResult, PhaseRow
+
+# "auto" places a constraint on the device when its first token expansion
+# has at least this many lanes (set from H100 timings of both placements,
+# PERF.md)
+NLCC_DEVICE_MIN = 1 << 12
 
 
 class MatchEngine:
@@ -37,22 +51,20 @@ class MatchEngine:
         num_ranks: int = 1,
         lcc_engine: str = "bucketed",
         source_batch: int = 1 << 16,
-        nlcc_mode: str = "host",
+        nlcc_mode: str = "auto",
+        nlcc_device_min: int = NLCC_DEVICE_MIN,
         counting: bool = False,
         edge_data: np.ndarray | None = None,
         compact: bool = True,
         *,
-        device: torch.device | str,
+        device: torch.device | str = "cuda",
     ):
         if lcc_engine != "bucketed":
             raise ValueError(
                 f"lcc_engine={lcc_engine!r}: only 'bucketed' is ported"
             )
-        if nlcc_mode != "host":
-            raise ValueError(
-                f"nlcc_mode={nlcc_mode!r}: only 'host' is ported (the device "
-                "NLCC engine is not)"
-            )
+        if nlcc_mode not in ("auto", "device", "host"):
+            raise ValueError(f"nlcc_mode={nlcc_mode!r}: not auto, device or host")
         if edge_data is not None:
             raise ValueError("edge-metadata matching is not ported")
         if not isinstance(graph, Graph):
@@ -68,6 +80,20 @@ class MatchEngine:
             graph, self.labels, pattern, device=self.device,
             num_ranks=num_ranks, counting=counting,
         )
+        # NLCC placement: "device" runs every constraint on the device
+        # engine, "host" on the host engine, "auto" moves a constraint to
+        # the device when its first token expansion has at least
+        # ``nlcc_device_min`` lanes
+        self.nlcc_mode = nlcc_mode
+        self.nlcc_device_min = nlcc_device_min
+        self._dev_nlcc = (
+            DeviceNlcc(graph.num_vertices, num_ranks=num_ranks, device=self.device)
+            if nlcc_mode != "host" and graph.num_vertices < (1 << 31)
+            else None
+        )
+        # the JAX API's count of device runs redone on the host; the device
+        # engine sizes every frontier exactly, so nothing is redone
+        self.nlcc_fallbacks = 0
         # compact continuation (run supersteps 1+ on the pruned subgraph) is
         # exact only when every template vertex requires hearing at least
         # one neighbour class; vertices with no alive edges then always die.
@@ -214,21 +240,43 @@ class MatchEngine:
         eids = pos[edge_keys[np.minimum(pos, len(edge_keys) - 1)] == keys]
         return self.lcc.state_from_edge_ids(tv, eids, lazy=self._compact_engine)
 
+    def _nlcc_on_device(
+        self, acsr: AliveCsr, c: NonLocalConstraint, tv: np.ndarray,
+        candidates: np.ndarray | None = None,
+    ) -> bool:
+        """Place one constraint run: "auto" moves it to the device when the
+        first token expansion is big enough to pay for the device run's
+        fixed costs (launches and host reads per hop)."""
+        if self._dev_nlcc is None or self.nlcc_mode == "host":
+            return False
+        if self.nlcc_mode == "device":
+            return True
+        sources = token_sources(c, self.labels, tv, candidates)
+        work = self._dev_nlcc._first_expansion(acsr, sources)
+        return work >= self.nlcc_device_min
+
     def _run_constraint(self, pl, c, acsr, tv, forwarded):
-        """One NLCC constraint on the host engine."""
+        """One NLCC constraint, on the device or the host engine."""
         g = self.graph
+        cand = self._cands[pl]
+        use_dev = self._nlcc_on_device(acsr, c, tv, cand)
         # driver-level forwarded-set clearing runs before EVERY constraint
         forwarded.reset_for(c, self.labels, tv, g.num_vertices)
+        if use_dev:
+            fn = self._dev_nlcc.run_tds if c.is_tds else self._dev_nlcc.run_nem
+            return fn(
+                acsr, self.labels, tv, c, g.num_vertices,
+                forwarded=forwarded, candidates=cand,
+            )
         if c.is_tds:
             return run_tds(
                 acsr, self.labels, tv, c, g.num_vertices,
                 source_batch=self.source_batch, num_ranks=self.num_ranks,
-                forwarded=forwarded, candidates=self._cands[pl],
+                forwarded=forwarded, candidates=cand,
             )
         return run_nem(
             acsr, self.labels, tv, c, g.num_vertices,
-            num_ranks=self.num_ranks, forwarded=forwarded,
-            candidates=self._cands[pl],
+            num_ranks=self.num_ranks, forwarded=forwarded, candidates=cand,
         )
 
     def run(self, max_iterations: int = 100) -> MatchResult:

@@ -91,7 +91,7 @@ class BucketedLccEngine:
         labels: np.ndarray,
         pattern: PatternGraph,
         *,
-        device: torch.device | str,
+        device: torch.device | str = "cuda",
         num_ranks: int = 1,
         min_width: int = 8,
         max_width: int = 8192,

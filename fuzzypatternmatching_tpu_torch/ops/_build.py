@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes``. The library lands in
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, loaded with ``ctypes``; ``build_all`` runs one
+nvcc per source, all at once. The library lands in
 ``fuzzypatternmatching_tpu_torch/_build/`` (ignored by git), named by a hash
 of the source and the flags, so a changed source is rebuilt and an unchanged
 one is built once. Nothing is built at import time: the first CUDA call that
@@ -39,6 +40,20 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P,
         ],
     },
+    "nlcc_frontier": {
+        "fpm_expand_count": [
+            _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _P, _P, _P,
+        ],
+        "fpm_expand_write": [
+            _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _P, _P, _P, _P, _P,
+        ],
+        "fpm_forward_winners": [
+            _P, ctypes.c_int64, _P, _P, ctypes.c_int64, _P, _P, ctypes.c_int64,
+            _P, _P,
+        ],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -64,31 +79,56 @@ def find_nvcc() -> str:
     )
 
 
+def _so_path(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def _build_missing(names) -> None:
+    """Build the libraries of ``names`` not built yet, one nvcc per source,
+    all started together."""
+    todo = [n for n in names if not os.path.exists(_so_path(n))]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name in todo:
+        tmp = f"{_so_path(name)}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC, f"{name}.cu")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, _so_path(name))
+        build_seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build_all() -> None:
+    """Build (in parallel) and load every kernel library."""
+    _build_missing(_SIGNATURES)
+    for name in _SIGNATURES:
+        library(name)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    so_path = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so_path)
-        build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(so_path)
+    _build_missing([name])
+    lib = ctypes.CDLL(_so_path(name))
     for fn_name, argtypes in _SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes

@@ -138,11 +138,20 @@ def test_cuda_device_raises_without_a_card(golden_meta, tmp_path):
         ])
 
 
+def test_default_device_is_the_card(golden_meta):
+    """MatchEngine with no device argument runs on the card, and raises
+    where there is none: there is no switch to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    g, labels, pattern, constraints = _config(golden_meta, "tree_s11")
+    with pytest.raises(RuntimeError):
+        MatchEngine(g, labels, pattern, constraints)
+
+
 @pytest.mark.parametrize(
     "kw",
     [
-        {"nlcc_mode": "auto"},
-        {"nlcc_mode": "device"},
+        {"nlcc_mode": "mesh"},
         {"lcc_engine": "flat"},
         {"counting": True},
         {"edge_data": np.zeros(1, dtype=np.int64)},

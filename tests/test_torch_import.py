@@ -40,6 +40,8 @@ def test_every_port_module_is_listed():
     for name in (
         "fuzzypatternmatching_tpu_torch.ops.lcc_superstep",
         "fuzzypatternmatching_tpu_torch.ops._build",
+        "fuzzypatternmatching_tpu_torch.ops.nlcc_frontier",
+        "fuzzypatternmatching_tpu_torch.engine.nlcc_device",
         "fuzzypatternmatching_tpu_torch.engine.lcc_bucketed",
         "fuzzypatternmatching_tpu_torch.engine.driver",
         "fuzzypatternmatching_tpu_torch.engine.nlcc",

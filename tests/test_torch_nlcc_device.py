@@ -1,0 +1,408 @@
+"""The torch DeviceNlcc (fuzzypatternmatching_tpu_torch/engine/nlcc_device.py)
+and its kernels (ops/nlcc_frontier.py) on the CPU.
+
+* DeviceNlcc with ``device="cpu"`` (the kernels' plain twins) against the
+  JAX package's DeviceNlcc (jit on the CPU) and its host engine, on the
+  fixtures of tests/test_nlcc_device.py: the same sources, validated
+  flags, messages (total and per rank), edge marks, subgraphs and
+  forwarded keys;
+* the twins of expand_frontier and forward_winners against numpy written
+  out here (``np.repeat`` expansion, ``lexsort`` winners), with empty
+  frontiers, zero-degree tokens, a hub row, 1 and 4 ranks, every lane
+  filtered and none, and keys repeating within and across hops;
+* the torch MatchEngine in each NLCC placement against the JAX
+  MatchEngine on the golden configurations.
+
+The kernels themselves are held against the twins by the tests marked
+``cuda`` in tests/test_torch_ops.py, which skip where there is no card.
+Every value compared is an integer or a flag: exact equality.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fuzzypatternmatching_tpu.engine import nlcc as jax_nlcc
+from fuzzypatternmatching_tpu.engine.driver import MatchEngine as JaxMatchEngine
+from fuzzypatternmatching_tpu.engine.nlcc_device import DeviceNlcc as JaxDeviceNlcc
+from fuzzypatternmatching_tpu.graph.csr import from_edges
+from fuzzypatternmatching_tpu_torch import golden
+from fuzzypatternmatching_tpu_torch.engine import nlcc
+from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
+from fuzzypatternmatching_tpu_torch.engine.nlcc_device import DeviceNlcc
+from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+from fuzzypatternmatching_tpu_torch.pattern.nonlocal_constraint import (
+    NonLocalConstraint,
+)
+
+from test_engine_vs_oracle import (
+    _random_graph,
+    selected_constraint,
+    tds_selected_constraint,
+    uniform_path_nem,
+)
+from test_nlcc_device import _assert_outcome_equal, _full_acsr, _tv_for
+from test_oracle import cycle_constraint, path_constraint, tds_constraint, undirected
+from test_torch_ops import (
+    EXPAND_CASES,
+    WINNER_CASES,
+    _as_torch,
+    _expand_inputs,
+    _winner_inputs,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tools"))
+from make_golden import build_config as jax_build_config  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+def _port_constraint(cj) -> NonLocalConstraint:
+    return NonLocalConstraint(
+        labels=cj.labels.copy(), indices=cj.indices.copy(),
+        cycle_length=cj.cycle_length, valid_cycle=cj.valid_cycle,
+        interleave_lcc=cj.interleave_lcc,
+        selected_vertices=cj.selected_vertices,
+        enumeration=cj.enumeration.copy(), aggregation=cj.aggregation.copy(),
+        is_tds=cj.is_tds,
+    )
+
+
+def _port_acsr(acsr_j) -> nlcc.AliveCsr:
+    return nlcc.AliveCsr(ptr=acsr_j.ptr.copy(), col=acsr_j.col.copy())
+
+
+def _three_runs(kind, acsr_j, labels, tv, cj, v, nr, fws=None, **kw):
+    """(JAX host, JAX DeviceNlcc, port DeviceNlcc) outcomes of one
+    constraint; ``fws`` = their three forwarded sets."""
+    fh, fj, fp = fws or (None, None, None)
+    c = _port_constraint(cj)
+    if kind == "nem":
+        host = jax_nlcc.run_nem(acsr_j, labels, tv, cj, v, num_ranks=nr, forwarded=fh, **kw)
+        jdev = JaxDeviceNlcc(v, num_ranks=nr).run_nem(acsr_j, labels, tv, cj, v, forwarded=fj, **kw)
+        port = DeviceNlcc(v, num_ranks=nr, device=CPU).run_nem(
+            _port_acsr(acsr_j), labels, tv, c, v, forwarded=fp, **kw
+        )
+    else:
+        host = jax_nlcc.run_tds(acsr_j, labels, tv, cj, v, num_ranks=nr, forwarded=fh, **kw)
+        jdev = JaxDeviceNlcc(v, num_ranks=nr).run_tds(acsr_j, labels, tv, cj, v, forwarded=fj, **kw)
+        port = DeviceNlcc(v, num_ranks=nr, device=CPU).run_tds(
+            _port_acsr(acsr_j), labels, tv, c, v, forwarded=fp, **kw
+        )
+    _assert_outcome_equal(host, port)
+    _assert_outcome_equal(jdev, port)
+    return host, port
+
+
+def _forwarded_sets():
+    return (jax_nlcc.ForwardedSets.empty(), jax_nlcc.ForwardedSets.empty(),
+            nlcc.ForwardedSets.empty())
+
+
+def _same_keys(fws):
+    fh, fj, fp = fws
+    assert np.array_equal(fh.keys, fp.keys)
+    assert np.array_equal(fj.keys, fp.keys)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nem_cycle_matches_jax(seed):
+    g = _random_graph(seed, v=48, e=160)
+    labels = np.random.RandomState(seed + 7).randint(1, 4, size=48).astype(np.uint64)
+    c = cycle_constraint()
+    fws = _forwarded_sets()
+    host, _ = _three_runs("nem", _full_acsr(g), labels, _tv_for(labels, [c], 48), c, 48, 4, fws)
+    _same_keys(fws)
+    assert host.messages > 0
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_nem_path_matches_jax(seed):
+    g = _random_graph(seed, v=48, e=160)
+    labels = np.random.RandomState(seed + 7).randint(1, 3, size=48).astype(np.uint64)
+    c = path_constraint()
+    fws = _forwarded_sets()
+    _three_runs("nem", _full_acsr(g), labels, _tv_for(labels, [c], 48), c, 48, 4, fws)
+    _same_keys(fws)
+    assert len(fws[2].keys) > 0
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_tds_matches_jax(seed):
+    g = _random_graph(seed, v=48, e=160)
+    labels = np.random.RandomState(seed + 7).randint(1, 3, size=48).astype(np.uint64)
+    c = tds_constraint()
+    host, _ = _three_runs("tds", _full_acsr(g), labels, _tv_for(labels, [c], 48), c, 48, 4)
+    assert len(host.subgraphs) > 0
+
+
+def test_selected_vertices_aggregation_matches_jax():
+    """The path run fills the forwarded sets; the selected run reads them,
+    one ForwardedSets object per engine across both."""
+    src, dst = undirected([(0, 1), (1, 2), (2, 3), (3, 0)])
+    g = from_edges(src, dst, num_vertices=4)
+    labels = np.array([1, 2, 1, 2], dtype=np.uint64)
+    cs = [path_constraint(), selected_constraint()]
+    tv = _tv_for(labels, cs, 4)
+    acsr = _full_acsr(g)
+    fws = _forwarded_sets()
+    for cj in cs:
+        for f in fws:
+            f.reset_for(cj, labels, tv, 4)
+        _three_runs("nem", acsr, labels, tv, cj, 4, 2, fws)
+        _same_keys(fws)
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_tds_selected_matches_jax(seed):
+    g = _random_graph(seed, v=32, e=96)
+    labels = np.ones(32, dtype=np.uint64)
+    c0, c1 = uniform_path_nem(), tds_selected_constraint()
+    tv = _tv_for(labels, [c0], 32)
+    acsr = _full_acsr(g)
+    fws = _forwarded_sets()
+    _three_runs("nem", acsr, labels, tv, c0, 32, 2, fws)
+    for f in fws:
+        f.reset_for(c1, labels, tv, 32)
+    host, _ = _three_runs("tds", acsr, labels, tv, c1, 32, 2, fws)
+    assert host.validated.any()
+
+
+def test_shared_forwarded_sets_sequence_matches_host():
+    """A nem path run, a selected nem run and a selected TDS run in one
+    sequence on one forwarded set per engine, with 3 ranks; tv is the
+    same for all three, as in a MatchEngine iteration without deletions."""
+    g = _random_graph(21, v=40, e=140)
+    labels = np.ones(40, dtype=np.uint64)
+    cs = [uniform_path_nem(), selected_constraint(), tds_selected_constraint()]
+    cs[1].labels[:] = 1
+    tv = _tv_for(labels, cs, 40)
+    acsr = _full_acsr(g)
+    fws = _forwarded_sets()
+    for cj in cs:
+        for f in fws:
+            f.reset_for(cj, labels, tv, 40)
+        _three_runs("tds" if cj.is_tds else "nem", acsr, labels, tv, cj, 40, 3, fws)
+        _same_keys(fws)
+
+
+def test_metadata_hop_filters_are_refused():
+    g = _random_graph(0, v=16, e=40)
+    labels = np.ones(16, dtype=np.uint64)
+    c = _port_constraint(uniform_path_nem())
+    dn = DeviceNlcc(16, device=CPU)
+    acsr = _port_acsr(_full_acsr(g))
+    tv = _tv_for(labels, [c], 16)
+    with pytest.raises(NotImplementedError):
+        dn.run_nem(acsr, labels, tv, c, 16, hopc=np.zeros(3, dtype=np.int64))
+    with pytest.raises(NotImplementedError):
+        dn.run_tds(acsr, labels, tv, c, 16, hopc=np.zeros(3, dtype=np.int64))
+
+
+def test_device_nlcc_refusals():
+    with pytest.raises(ValueError):
+        DeviceNlcc(1 << 31, device=CPU)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            DeviceNlcc(16)  # the card is the default device
+
+
+# -- the twins against numpy --------------------------------------------------
+
+
+def _expand_numpy(ptr, col, cur, parent, ok_bits, h, r, drop):
+    deg = ptr[cur + 1] - ptr[cur]
+    tok = np.repeat(np.arange(len(cur)), deg)
+    off = np.arange(int(deg.sum())) - np.repeat(np.cumsum(deg) - deg, deg)
+    nbr = col[ptr[cur][tok] + off]
+    msg = nbr != parent[tok] if drop else np.ones(len(nbr), dtype=bool)
+    msg_r = np.bincount(nbr[msg] % r, minlength=r).astype(np.int64)
+    keep = msg & (((ok_bits.view(np.uint32)[nbr] >> h) & 1) != 0) if h >= 0 else msg
+    return tok[keep], nbr[keep], msg_r, len(nbr)
+
+
+@pytest.mark.parametrize("case", range(len(EXPAND_CASES)))
+def test_expand_frontier_twin_matches_numpy(case):
+    n, hub, density, h, r, drop = EXPAND_CASES[case]
+    ptr, col, cur, parent, ok_bits = _expand_inputs(case, n, hub, density)
+    want_tok, want_nbr, want_msg, lanes = _expand_numpy(ptr, col, cur, parent, ok_bits, h, r, drop)
+    before = dict(nf.launches)
+    got = nf.expand_frontier(*_as_torch(ptr, col, cur, parent, ok_bits), h, r, drop)
+    assert nf.launches == before  # the twin launches nothing
+    assert got.tok.dtype == got.nbr.dtype == torch.int32
+    assert np.array_equal(got.tok.numpy(), want_tok)
+    assert np.array_equal(got.nbr.numpy(), want_nbr)
+    assert np.array_equal(got.msg_per_rank.numpy(), want_msg)
+    assert got.lanes == lanes
+    if hub and n:
+        assert lanes >= 10000
+    sized = nf.expand_frontier(
+        *_as_torch(ptr, col, cur, parent, ok_bits), h, r, drop, sizes=(lanes, len(want_tok))
+    )
+    assert torch.equal(sized.tok, got.tok) and torch.equal(sized.nbr, got.nbr)
+
+
+def _winners_numpy(keys, parents, seen):
+    prior = np.isin(keys, seen)
+    order = np.lexsort((np.arange(len(keys)), parents, keys))
+    k = keys[order]
+    first = np.ones(len(k), dtype=bool)
+    first[1:] = k[1:] != k[:-1]
+    win = np.zeros(len(keys), dtype=bool)
+    win[order] = first & ~prior[order]
+    return win
+
+
+@pytest.mark.parametrize("case", range(len(WINNER_CASES)))
+def test_forward_winners_twin_matches_numpy(case):
+    keys, parents, seen = _winner_inputs(case, *WINNER_CASES[case])
+    want = _winners_numpy(keys, parents, seen)
+    got = nf.forward_winners(*_as_torch(keys, parents, seen))
+    assert got.dtype == torch.bool
+    assert np.array_equal(got.numpy(), want)
+    if case >= 3:
+        assert 0 < want.sum() < len(set(keys.tolist()))  # prior keys lose
+
+
+def test_forward_winners_twin_across_hops():
+    """Two hops: the first hop's winners join the earlier keys, and the
+    second hop's lanes of those keys lose."""
+    rng = np.random.RandomState(9)
+    k1 = rng.randint(0, 200, size=600).astype(np.int64)
+    p1 = rng.randint(0, 9, size=600).astype(np.int32)
+    fwd_in = np.arange(0, 200, 7, dtype=np.int64)
+    w1 = nf.forward_winners(*_as_torch(k1, p1, fwd_in)).numpy()
+    assert np.array_equal(w1, _winners_numpy(k1, p1, fwd_in))
+    seen = np.concatenate([fwd_in, k1[w1]])
+    k2 = rng.randint(0, 400, size=900).astype(np.int64)
+    p2 = rng.randint(0, 9, size=900).astype(np.int32)
+    w2 = nf.forward_winners(*_as_torch(k2, p2, seen)).numpy()
+    assert np.array_equal(w2, _winners_numpy(k2, p2, seen))
+    assert not np.isin(k2[w2], seen).any()
+
+
+def test_wrappers_reject_wrong_inputs():
+    ptr, col, cur, parent, ok_bits = _as_torch(*_expand_inputs(0, 10, False, 0.5))
+    with pytest.raises(ValueError):
+        nf.expand_frontier(ptr, col, cur.long(), parent, ok_bits, 1, 1, True)
+    with pytest.raises(ValueError):
+        nf.expand_frontier(ptr, col, cur, parent, ok_bits, 31, 1, True)
+    with pytest.raises(ValueError):
+        nf.expand_frontier(ptr, col, cur, parent, ok_bits, 1, 0, True)
+    keys = torch.arange(4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        nf.forward_winners(keys, keys, keys)
+    with pytest.raises(ValueError):
+        nf.forward_winners(keys, keys[:3].int(), keys)
+
+
+# -- MatchEngine in each placement against the JAX MatchEngine --------------
+
+
+@pytest.fixture(scope="module")
+def golden_meta():
+    with open(os.path.join(golden.GOLDEN_BASE, "golden_meta.json")) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def jax_results(golden_meta):
+    """The JAX MatchEngine's result per golden configuration, computed once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cfg = golden_meta["configs"][name]
+            gj, lab, pj, cjs = jax_build_config(cfg["scale"], os.path.join(REPO, cfg["corpus"]))
+            cache[name] = JaxMatchEngine(gj, lab, pj, cjs, num_ranks=golden_meta["num_ranks"]).run()
+        return cache[name]
+
+    return get
+
+
+def _rows(result):
+    return [
+        (r.itr, r.phase, r.step, r.active_vertices, r.active_edges, r.messages,
+         {k: np.asarray(x).tolist() for k, x in (r.per_rank or {}).items()})
+        for r in result.rows
+    ]
+
+
+@pytest.mark.parametrize("mode", ["device", "host", "auto"])
+@pytest.mark.parametrize("config", ["tree_s11", "tree_s13", "cycle_s13"])
+def test_driver_modes_match_jax(golden_meta, jax_results, config, mode):
+    cfg = golden_meta["configs"][config]
+    g, labels, pattern, constraints = golden.build_config(
+        cfg["scale"], os.path.join(REPO, cfg["corpus"])
+    )
+    eng = MatchEngine(
+        g, labels, pattern, constraints, num_ranks=golden_meta["num_ranks"],
+        nlcc_mode=mode, nlcc_device_min=1 << 10, device="cpu",
+    )
+    assert (eng._dev_nlcc is None) == (mode == "host")
+    rt, rj = eng.run(), jax_results(config)
+    assert _rows(rt) == _rows(rj)
+    assert rt.iterations == rj.iterations == cfg["iterations"]
+    assert rt.traversed_edges == rj.traversed_edges
+    assert rt.pattern_found == rj.pattern_found
+    assert rt.active_vertices == rj.active_vertices
+    assert rt.active_edges == rj.active_edges
+    assert rt.subgraphs == rj.subgraphs
+    assert eng.nlcc_fallbacks == 0
+
+
+def test_driver_defaults():
+    import inspect
+
+    params = inspect.signature(MatchEngine.__init__).parameters
+    assert params["nlcc_mode"].default == "auto"
+    assert params["device"].default == "cuda"
+    assert params["nlcc_device_min"].default > 0
+
+
+def test_auto_mode_gates_on_first_expansion(golden_meta):
+    cfg = golden_meta["configs"]["cycle_s13"]
+    g, labels, pattern, constraints = golden.build_config(
+        cfg["scale"], os.path.join(REPO, cfg["corpus"])
+    )
+    eng = MatchEngine(
+        g, labels, pattern, constraints, nlcc_mode="auto",
+        nlcc_device_min=1 << 30, device="cpu",
+    )
+    c = constraints[0]
+    tv = _tv_for(labels, [c], g.num_vertices)
+    acsr = nlcc.AliveCsr(ptr=g.row_ptr.astype(np.int64), col=g.cols.astype(np.int64))
+    cand = np.nonzero(labels == c.labels[0])[0].astype(np.int64)
+    work = eng._dev_nlcc._first_expansion(acsr, nlcc.token_sources(c, labels, tv, cand))
+    assert 0 < work < 1 << 30
+    assert not eng._nlcc_on_device(acsr, c, tv, cand)
+    eng.nlcc_device_min = work
+    assert eng._nlcc_on_device(acsr, c, tv, cand)
+    eng.nlcc_device_min = work + 1
+    assert not eng._nlcc_on_device(acsr, c, tv)
+    eng.nlcc_mode = "device"
+    assert eng._nlcc_on_device(acsr, c, tv)
+    eng.nlcc_mode = "host"
+    assert not eng._nlcc_on_device(acsr, c, tv)
+
+
+def test_ok_bits_equal_jax():
+    """The arrival bitmask, built on the device, against the JAX package's
+    numpy words (bit 31 = map keys)."""
+    rng = np.random.RandomState(4)
+    v = 500
+    labels = rng.randint(1, 4, size=v).astype(np.uint64)
+    c = cycle_constraint()
+    tv = _tv_for(labels, [c], v)
+    tv[rng.rand(v) < 0.3] = 0
+    keys = np.nonzero(tv)[0][::2].astype(np.int64)
+    for mk in (None, keys):
+        got = DeviceNlcc(v, device=CPU)._ok_bits(labels, tv, _port_constraint(c), mk)
+        want = JaxDeviceNlcc(v)._ok_bits(labels, tv, c, mk)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy().view(np.uint32), want)

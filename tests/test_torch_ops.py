@@ -347,3 +347,156 @@ def test_gather_accept_or_every_lane_mapping_on_cuda(cuda_device, n, w, offset):
     torch.cuda.synchronize()
     for g, r in zip(got, ops.gather_accept_or_reference(*args)):
         assert torch.equal(g.cpu(), r)
+
+
+# -- the NLCC walk kernels (ops/nlcc_frontier.py) -----------------------------
+# Inputs shared with tests/test_torch_nlcc_device.py, which holds the twins
+# against numpy on the CPU; here the kernels are held against the twins.
+
+CPU = torch.device("cpu")
+
+
+def _csr_case(rng, v=300, hub=12000, zero_frac=0.2):
+    """A random CSR over v vertices with one hub row of ``hub`` neighbours
+    (vertex 7; neighbours repeat: the kernels do not need distinct columns)
+    and a share of zero-degree rows."""
+    deg = rng.randint(0, 12, size=v)
+    deg[rng.rand(v) < zero_frac] = 0
+    deg[7] = hub
+    ptr = np.zeros(v + 1, dtype=np.int64)
+    np.cumsum(deg, out=ptr[1:])
+    col = rng.randint(0, v, size=int(ptr[-1])).astype(np.int32)
+    return ptr, col
+
+
+EXPAND_CASES = [
+    # (frontier size, hub in frontier, ok-bit density, h_next, ranks, drop)
+    (0, False, 0.5, 1, 1, False),  # empty frontier
+    (1, True, 0.5, 2, 4, True),  # the hub row alone
+    (200, True, 0.5, 3, 1, True),
+    (200, True, 0.5, 3, 4, False),
+    (200, False, 0.0, 1, 4, True),  # every lane filtered
+    (200, False, 1.0, 1, 1, True),  # no lane filtered
+    (200, True, 0.3, -1, 4, False),  # every message kept (TDS mode)
+    (2000, True, 0.02, 5, 3, True),
+]
+
+
+def _expand_inputs(seed, n, hub, density):
+    """(ptr, col, cur, parent, ok_bits) numpy inputs of expand_frontier."""
+    rng = np.random.RandomState(seed)
+    ptr, col = _csr_case(rng)
+    v = len(ptr) - 1
+    ok = (rng.rand(v, 31) < density).astype(np.uint64)
+    ok_bits = (ok << np.arange(31, dtype=np.uint64)).sum(axis=1).astype(np.uint64)
+    ok_bits[rng.rand(v) < 0.5] |= np.uint64(1 << 31)  # the cycle map-key bit
+    ok_bits = ok_bits.astype(np.uint32).view(np.int32)
+    cur = rng.randint(0, v, size=n).astype(np.int32)
+    if hub and n:
+        cur[n // 2] = 7
+    parent = rng.randint(0, v, size=n).astype(np.int32)
+    # a third of the tokens with neighbours came from their first neighbour
+    back = np.nonzero(ptr[cur + 1] > ptr[cur])[0][::3]
+    parent[back] = col[ptr[cur[back]]]
+    return ptr, col, cur, parent, ok_bits
+
+
+def _winner_inputs(seed, n_lanes, n_keys, n_seen):
+    """(keys, parents, seen): keys that repeat within the hop (n_keys
+    distinct among n_lanes), parents that repeat within a key, and earlier
+    keys, partly among this hop's."""
+    rng = np.random.RandomState(seed)
+    pool = np.unique(rng.randint(0, 1 << 40, size=max(n_keys, 1), dtype=np.int64))
+    keys = pool[rng.randint(0, len(pool), size=n_lanes)]
+    parents = rng.randint(0, 50, size=n_lanes).astype(np.int32)
+    seen = np.concatenate([
+        pool[rng.rand(len(pool)) < 0.3],
+        np.unique(rng.randint(1 << 41, 1 << 42, size=n_seen, dtype=np.int64)),
+    ])
+    rng.shuffle(seen)
+    return keys, parents, seen
+
+
+WINNER_CASES = [(0, 5, 0), (1, 1, 0), (40, 40, 0), (1000, 37, 10), (5000, 4000, 300)]
+
+
+def _as_torch(*arrays, dev=CPU):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(EXPAND_CASES)))
+def test_expand_frontier_kernel_matches_twin(cuda_device, case):
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    n, hub, density, h, r, drop = EXPAND_CASES[case]
+    arrays = _expand_inputs(case, n, hub, density)
+    want = nf.expand_frontier_reference(*_as_torch(*arrays), h, r, drop)
+    before = nf.launches["expand_frontier"]
+    got = nf.expand_frontier(*_as_torch(*arrays, dev=cuda_device), h, r, drop)
+    torch.cuda.synchronize()
+    assert nf.launches["expand_frontier"] == before + (1 if want.lanes else 0)
+    assert torch.equal(got.tok.cpu(), want.tok)
+    assert torch.equal(got.nbr.cpu(), want.nbr)
+    assert torch.equal(got.msg_per_rank.cpu(), want.msg_per_rank)
+    assert got.lanes == want.lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(WINNER_CASES)))
+def test_forward_winners_kernel_matches_twin(cuda_device, case):
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    arrays = _winner_inputs(case, *WINNER_CASES[case])
+    want = nf.forward_winners_reference(*_as_torch(*arrays))
+    got = nf.forward_winners(*_as_torch(*arrays, dev=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_device_nlcc_on_cuda_matches_host(cuda_device, seed):
+    """The port's DeviceNlcc on the card against the port's host engine
+    (held equal to the JAX package's by tests/test_torch_shared.py), for
+    a cycle, a path and a TDS constraint, with 4 ranks."""
+    from fuzzypatternmatching_tpu_torch.engine import nlcc
+    from fuzzypatternmatching_tpu_torch.engine.nlcc_device import DeviceNlcc
+    from fuzzypatternmatching_tpu_torch.graph.csr import from_edges
+    from fuzzypatternmatching_tpu_torch.pattern.nonlocal_constraint import (
+        NonLocalConstraint,
+    )
+
+    v = 400
+    rng = np.random.RandomState(seed)
+    u, w = rng.randint(0, v, size=3000), rng.randint(0, v, size=3000)
+    g = from_edges(np.concatenate([u, w]), np.concatenate([w, u]), num_vertices=v)
+    acsr = nlcc.AliveCsr(ptr=g.row_ptr.astype(np.int64), col=g.cols.astype(np.int64))
+    labels = rng.randint(1, 4, size=v).astype(np.uint64)
+    lab = np.array([1, 2, 3, 1], dtype=np.uint64)
+    idx = np.array([0, 1, 2, 0], dtype=np.int64)
+    cs = [
+        NonLocalConstraint(lab, idx, 2, True, True, False),  # cycle
+        NonLocalConstraint(lab[[0, 1, 0]], idx[[0, 1, 0]], 1, False, True, False),  # path
+        NonLocalConstraint(lab[[0, 1, 0]], idx[[0, 1, 0]], 1, False, True, False,
+                           enumeration=np.arange(3), is_tds=True),
+    ]
+    dn = DeviceNlcc(v, num_ranks=4, device=cuda_device)
+    for c in cs:
+        tv = np.zeros(v, dtype=np.uint32)
+        for h in range(c.walk_len):
+            tv |= np.where(labels == c.labels[h], np.uint32(1 << int(c.indices[h])), 0).astype(np.uint32)
+        fh, fd = nlcc.ForwardedSets.empty(), nlcc.ForwardedSets.empty()
+        run = nlcc.run_tds if c.is_tds else nlcc.run_nem
+        host = run(acsr, labels, tv, c, v, num_ranks=4, forwarded=fh)
+        dev = (dn.run_tds if c.is_tds else dn.run_nem)(acsr, labels, tv, c, v, forwarded=fd)
+        assert host.messages == dev.messages > 0
+        assert np.array_equal(host.sources, dev.sources)
+        assert np.array_equal(host.validated, dev.validated)
+        assert np.array_equal(host.msg_per_rank, dev.msg_per_rank)
+        assert sorted(host.edge_marks) == sorted(dev.edge_marks)
+        if c.is_tds:
+            assert sorted(map(tuple, host.subgraphs.tolist())) == sorted(
+                map(tuple, dev.subgraphs.tolist())
+            )
+        assert np.array_equal(fh.keys, fd.keys)
