@@ -3,7 +3,8 @@
 NVIDIA GPU:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the hand-written CUDA kernels from csrc/ (nvcc, sm_90a);
+  2. build the hand-written CUDA kernels from csrc/ (nvcc, sm_90a) and print
+     each kernel's registers, static shared memory and spills (-Xptxas -v);
   3. hold each kernel against its plain torch twin, exactly: the alive
      table (words and group summary) at several sizes and summary budgets,
      the lookup at widths 8..8192, and gather_accept_or at widths 8..8192
@@ -19,27 +20,36 @@ NVIDIA GPU:
   7. hold each kernel against its twin at the s21 shapes of a full-graph
      superstep, on the state after the init superstep and on an all-alive
      state, and time kernel and twin with CUDA events; time the lookup
-     again with rev sorted (the random-L2-sector check);
+     again with rev sorted (the random-L2-sector check), and the library
+     call that computes what pack_alive + rev_alive_lookup compute
+     (alive[rev], torch indexing; the port never calls it);
   8. one search of each mode under torch.profiler: device time against
      wall time, and the largest device items;
   9. hold the NLCC walk kernels (expand_frontier, forward_winners) against
      their twins, exactly, on seeded inputs: empty frontiers, zero-degree
      tokens, hub rows of 20,000 neighbours, 1, 4 and 5,000 ranks, every
      lane filtered and none; keys repeating within and across hops, with
-     earlier keys;
+     earlier keys; and every route: the plane's summary at 1..16 vertices a
+     bit (V from 300 to 2^24 + 3, not all multiples of 32), the first
+     design, h_next 0, 30 and -1; the partitioned winners with their own
+     tables and with tables forced small (partitions on global tables),
+     and the global-table design;
  10. run tree_s13 and cycle_s13 with every NLCC constraint on the device
      (nlcc_mode="device") and assert the committed anchors;
  11. the s21 cycle search (the graph and labels of phase 5, the
      examples/patterns_cycle corpus): one engine with nlcc_mode="device",
-     once warm and three times timed, asserting 169/346/56 and 105,906,296
+     once warm and once timed, asserting 169/346/56 and 105,906,296
      traversed edges and that both walk kernels were launched; then one
      search each with nlcc_mode="host" and the default "auto";
  12. each constraint of both s21 corpora on the state after the first LCC
      call, on the card and on the host engine: equal outcomes (forwarded
      keys included) and both placements' times, and the host time of the
      card's constraint 0 by function (cProfile); the walk kernels against
-     their twins at the s21 cycle hop shapes, timed by CUDA-graph replay
-     beside their bounds;
+     their twins at the s21 cycle hop shapes, every route timed by
+     CUDA-graph replay in turns (shipped, first design, summary;
+     partitioned winners, global table; twin) beside their bounds; and
+     both designs of each kernel on cuts of the largest hop (every k-th
+     token or lane) around the size where the route changes;
  13. one s21 cycle search (device mode) under torch.profiler, and one
      under cProfile (host time by function).
 
@@ -143,6 +153,29 @@ def table_err(got, want):
     if got.group_log2 != want.group_log2:
         raise AssertionError(f"group_log2 {got.group_log2} != {want.group_log2}")
     return max(max_err(got.words, want.words), max_err(got.summary, want.summary))
+
+
+def ptxas_usage(out):
+    """(kernel, registers, static shared bytes, spill bytes) per entry
+    function, from the output of nvcc -Xptxas -v."""
+    import re
+
+    rows, name, spill = [], None, 0
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?N_\w*?\d+([a-z_]+kernel)(\w*)'", line)
+        if m:
+            tmpl = re.findall(r"L[ib](\d+)E", m.group(2))
+            name = m.group(1) + (f"<{','.join(tmpl)}>" if tmpl else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), int(m.group(2) or 0), spill))
+            name = None
+    return rows
 
 
 def check_errs(errs, where):
@@ -399,6 +432,17 @@ def kernels_at_s21(lcc, errs):
         t_random = time_cuda(lambda: ops.rev_alive_lookup(rev, table))
         log(f"[7] {name} rev_alive_lookup with rev sorted: {t_sorted:.4f} ms "
             f"(as laid out: {t_random:.4f} ms)")
+        # library yardstick: one PyTorch indexing call on the bool slot flags
+        # computes what alive_table + rev_alive_lookup compute (the port
+        # never calls it)
+        if not torch.equal(alive[rev], alive_rev):
+            raise AssertionError(f"alive[rev] differs from rev_alive_lookup ({name})")
+        lib_ms = time_cuda(lambda: alive[rev])
+        pair_ms = times["pack_alive"][0] + times["rev_alive_lookup"][0]
+        times["rev_alive_lookup"] += (lib_ms,)
+        log(f"[7] {name} library call alive[rev] (torch indexing): {lib_ms:.4f} ms, against "
+            f"pack_alive + rev_alive_lookup {pair_ms:.4f} ms "
+            f"({'the kernels' if pair_ms < lib_ms else 'the library call'} faster)")
         results[name] = times
         del table_ref
     return results
@@ -429,7 +473,10 @@ def profile_search(engine, tag, anchors=S21_ANCHORS, phase="[8]"):
     ours = [e for e in items if any(k in e.key for k in (
         "pack_alive_kernel", "rev_alive_kernel", "gather_narrow4_kernel",
         "gather_wide_kernel", "gather_rowwise_kernel", "expand_count_kernel",
-        "expand_write_kernel", "winner_insert_kernel", "winner_mark_kernel"))]
+        "expand_write_kernel", "winner_insert_kernel", "winner_mark_kernel",
+        "bit_plane_kernel", "plane_summary_kernel", "plane_count_kernel", "plane_write_kernel",
+        "winner_hist_kernel", "winner_scan_kernel", "winner_scatter_kernel",
+        "winner_table_kernel", "winner_gather_kernel"))]
     top = sorted(items, key=dev_us, reverse=True)[:8]
     log(f"{phase} {tag} profiled search: wall {wall * 1e3:.1f} ms, device "
         f"{device_ms:.2f} ms (busy {100 * device_ms / (wall * 1e3):.1f} %), "
@@ -532,6 +579,105 @@ def compare_walk_kernels_small(dev, errs):
         f"{ {k: errs[k] for k in WALK_KERNELS} }")
 
 
+# V: the route a large filtered expand_frontier call takes
+ROUTE_VERTICES = {
+    300: "summary-1",  # the summary is the plane
+    (1 << 21) + 7: "summary-2",  # s21 (+7: V not a multiple of 32)
+    1 << 22: "summary-4",
+    (1 << 23) - 5: "summary-8",
+    (1 << 24) + 3: "summary-16",  # s24
+}
+
+
+def walk_route_inputs(seed, v, dev, n_tok=3000, rows=2000):
+    """expand_frontier inputs over ``v`` vertices: ``rows`` non-empty rows
+    (one hub of 20,000 neighbours), neighbours spread over all of ``v``,
+    random arrival words (half of them zero), tokens on full and empty
+    rows, a third coming back from their first neighbour."""
+    rng = np.random.RandomState(seed)
+    deg = np.zeros(v, dtype=np.int64)
+    full = rng.randint(0, v, size=rows)
+    deg[full] = rng.randint(1, 40, size=rows)
+    deg[full[0]] = 20000
+    ptr = np.zeros(v + 1, dtype=np.int64)
+    np.cumsum(deg, out=ptr[1:])
+    col = rng.randint(0, v, size=int(ptr[-1])).astype(np.int32)
+    ok_bits = rng.randint(-(1 << 31), 1 << 31, size=v, dtype=np.int64)
+    ok_bits[rng.rand(v) < 0.5] = 0
+    cur = np.concatenate([full[rng.randint(0, rows, size=n_tok - 100)],
+                          rng.randint(0, v, size=100)]).astype(np.int32)
+    parent = rng.randint(0, v, size=n_tok).astype(np.int32)
+    back = np.nonzero(ptr[cur + 1] > ptr[cur])[0][::3]
+    parent[back] = col[ptr[cur[back]]]
+    arrays = (ptr, col, cur, parent, ok_bits.astype(np.int32))
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def compare_walk_routes_small(dev, errs):
+    """Phase 9: every route of the walk kernels against the twins: the
+    plane's summary in shared memory at 1, 2, 4, 8 and 16 vertices a bit
+    (chosen from V), the first design, the unfiltered design, h_next 0, 30
+    and -1; the plane and summary kernels; the partitioned winners with
+    their own tables and with tables forced small (partitions on their
+    global-memory tables), and the global-table design."""
+    seen_routes = set()
+    big = nf.PLANE_MIN_LANES
+    for v, summary in ROUTE_VERTICES.items():
+        if nf.expand_route(v, 0, big) != summary:
+            raise AssertionError(f"V={v}: route {nf.expand_route(v, 0, big)}")
+        args = walk_route_inputs(v % 1000, v, dev)
+        for h in (0, 30, -1):
+            for r, drop in ((1, True), (5000, False)):
+                want = nf.expand_frontier_reference(*args, h, r, drop)
+                forced = [None] if h < 0 else [None, "summary"]
+                for route in forced:
+                    nf.reset_launches()
+                    got = nf.expand_frontier_cuda(*args, h, r, drop, route=route)
+                    torch.cuda.synchronize()
+                    errs["expand_frontier"] = max(errs["expand_frontier"],
+                                                  expansion_err(got, want))
+                    seen_routes.update(nf.routes)
+        n_words = nf.plane_words(v)
+        for h in (0, 30, 31):
+            plane = nf.bit_plane(args[4], h, n_words)
+            e = max_err(plane, nf.bit_plane_reference(args[4], h, n_words))
+            g, s_words = nf.summary_layout(v)
+            for gl in {g, g + 1, 6}:
+                e = max(e, max_err(nf.plane_summary(plane, gl, s_words),
+                                   nf.plane_summary_reference(plane, gl, s_words)))
+            errs["expand_frontier"] = max(errs["expand_frontier"], e)
+        del args
+    # a hop of PLANE_MIN_LANES lanes or more takes the summary route itself
+    ptr, col, cur, parent, ok_bits = walk_route_inputs(5, 1 << 16, dev)
+    hub = int(torch.argmax(ptr[1:] - ptr[:-1]))
+    n_hub = big // 20000 + 50  # tokens on the hub row of 20,000
+    cur = torch.cat([cur, torch.full((n_hub,), hub, dtype=torch.int32, device=dev)])
+    parent = torch.cat([parent, parent[:n_hub]])
+    nf.reset_launches()
+    got = nf.expand_frontier(ptr, col, cur, parent, ok_bits, 3, 4, True)
+    want = nf.expand_frontier_reference(ptr, col, cur, parent, ok_bits, 3, 4, True)
+    if want.lanes < big or nf.routes != {"summary-1": 1}:
+        raise AssertionError(f"{want.lanes} lanes took routes {nf.routes}")
+    errs["expand_frontier"] = max(errs["expand_frontier"], expansion_err(got, want))
+    del ptr, col, cur, parent, ok_bits
+    cases = [(0, 5, 0), (1, 1, 0), (1000, 37, 10), (100000, 5000, 3000), (300000, 200000, 50000)]
+    for i, case in enumerate(cases):
+        args = walk_winner_inputs(20 + i, *case, dev)
+        want = nf.forward_winners_reference(*args)
+        for kw in ({}, {"route": "partition"}, {"route": "partition", "table_slots": 64},
+                   {"route": "partition", "table_slots": 2}, {"route": "global-table"}):
+            got = nf.forward_winners_cuda(*args, **kw)
+            torch.cuda.synchronize()
+            errs["forward_winners"] = max(errs["forward_winners"], max_err(got, want))
+    check_errs(errs, "on the walk kernels' routes")
+    log(f"[9] walk-kernel routes equal their twins: expand_frontier routes "
+        f"{sorted(seen_routes)} at V {list(ROUTE_VERTICES)} (h_next 0/30/-1, ranks 1/5000; "
+        f"summary-1 by itself at {big} lanes), the plane and summary kernels at bits "
+        f"0/30/31; forward_winners partitioned (tables sized by winner_table_slots, and of 64 "
+        f"and 2 slots: partitions on their global tables) and the first design, "
+        f"{len(cases)} cases: {errs['expand_frontier']}, {errs['forward_winners']}")
+
+
 def host_profile(fn, tag, top=12):
     """Run ``fn`` once under cProfile and log the functions with the most
     host time of their own (name, calls, own s, cumulative s)."""
@@ -573,17 +719,18 @@ def run_s21_cycle(g, labels, dev):
     launches = {**ops.launches, **nf.launches}
     log(f"[11] device warm search: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s), "
         f"iterations={r.iterations}, {summary(r)}, kernel launches {launches}, "
-        f"TP rows {tp_rows(r)}")
+        f"walk-kernel routes {nf.routes}, TP rows {tp_rows(r)}")
     for k in WALK_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k}: no launch during the s21 cycle device search")
-    times = []
-    for i in range(3):
-        r, dt, lp, tp = timed_search(engine, S21_CYCLE_ANCHORS, f"s21 cycle device run {i}")
-        times.append(dt)
-        log(f"[11] device timed search {i}: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s, "
-            f"other {dt - lp - tp:.4f} s), {r.traversed_edges / dt / 1e6:.2f} M traversed "
-            f"edges/s, TP rows {tp_rows(r)}, host loadavg {os.getloadavg()}")
+    if not nf.routes.get(nf.expand_route(g.num_vertices, 1, nf.PLANE_MIN_LANES)) or not (
+        nf.routes.get("partition")
+    ):
+        raise AssertionError(f"s21 cycle device search took routes {nf.routes}")
+    r, dt, lp, tp = timed_search(engine, S21_CYCLE_ANCHORS, "s21 cycle device timed")
+    log(f"[11] device timed search: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s, "
+        f"other {dt - lp - tp:.4f} s), {r.traversed_edges / dt / 1e6:.2f} M traversed "
+        f"edges/s, TP rows {tp_rows(r)}, host loadavg {os.getloadavg()}")
     for mode in ("host", "auto"):
         engine.nlcc_mode = mode
         nf.reset_launches()
@@ -594,7 +741,7 @@ def run_s21_cycle(g, labels, dev):
         if mode == "auto" and nf.launches["expand_frontier"] == 0:
             raise AssertionError("auto mode kept s21 cycle constraint 0 on the host")
     engine.nlcc_mode = "device"
-    log(f"[11] anchors OK on every run {S21_CYCLE_ANCHORS}; device best {min(times):.4f} s")
+    log(f"[11] anchors OK on every run {S21_CYCLE_ANCHORS}")
     return engine, {k: launches[k] for k in WALK_KERNELS}
 
 
@@ -702,58 +849,149 @@ def constraint_placements(engine, tag, record=None):
     return rows, calls
 
 
+def time_turns(fns):
+    """Device ms of each named function by CUDA-graph replay, timed in turns
+    forward then backward (a, b, c, c, b, a): the mean of the two, and the
+    raw values."""
+    raw = {k: [] for k in fns}
+    for k in list(fns) + list(reversed(fns)):
+        raw[k].append(time_cuda(fns[k]))
+    return {k: sum(v) / 2 for k, v in raw.items()}, raw
+
+
 def walk_kernels_at_s21(calls, errs):
     """Phase 12: each recorded walk-kernel call of one s21 constraint run
-    against its twin, and both timed by CUDA-graph replay, beside the
-    bound (bytes read and written once over the HBM rate) and the count
-    of random 32-byte sectors the call touches."""
+    against its twin (every route), and timed by CUDA-graph replay in
+    turns: the shipped design, the first design (the arrival bit read from
+    the int32 ok_bits word; one global hash table), the other design (the
+    plane's summary; the hash partitions) and the twin; beside the bound
+    (bytes read and written once over the HBM rate)."""
     totals = {k: [0.0, 0.0, 0.0] for k in WALK_KERNELS}
+    first_design = {k: 0.0 for k in WALK_KERNELS}
     for i, (a, out) in enumerate(calls["expand_frontier"]):
         ptr, col, cur, parent, ok_bits, h, r, drop = a
         sizes = (out.lanes, out.tok.shape[0])
         twin = nf.expand_frontier_reference(*a, sizes=sizes)
         errs["expand_frontier"] = max(errs["expand_frontier"], expansion_err(out, twin))
+        fns = {"shipped": lambda: nf.expand_frontier(*a, sizes=sizes)}
+        if h >= 0:
+            for route in ("first-design", "summary"):
+                fns[route] = (lambda route=route:
+                              nf.expand_frontier_cuda(*a, sizes=sizes, route=route))
+                errs["expand_frontier"] = max(errs["expand_frontier"],
+                                              expansion_err(fns[route](), twin))
+        fns["twin"] = lambda: nf.expand_frontier_reference(*a, sizes=sizes)
         every = nf.expand_frontier_reference(ptr, col, cur, parent, ok_bits, -1, 1, False,
                                              sizes=(out.lanes, out.lanes))
         distinct = int(torch.unique(every.nbr).numel())
         messages = int(out.msg_per_rank.sum())
+        density = ""
+        if h >= 0:
+            # how much of the hop the plane's summary filters out
+            g = nf.summary_layout(ok_bits.shape[0])[0]
+            bit = ((ok_bits >> h) & 1).bool()
+            grouped = torch.zeros(-(-bit.numel() >> g) << g, dtype=torch.bool, device=bit.device)
+            grouped[: bit.numel()] = bit
+            group_set = grouped.view(-1, 1 << g).any(1)
+            density = (f"; {100 * float(bit.float().mean()):.2f} % of vertices hold the bit, "
+                       f"{100 * float(group_set[every.nbr.long() >> g].float().mean()):.2f} % of "
+                       f"lanes land on a set summary bit ({1 << g} vertices a bit)")
         del twin, every
         nbytes = 4 * out.lanes + 24 * cur.shape[0] + 4 * distinct + 8 * sizes[1] + 8 * r
         bound = nbytes / HBM_BYTES_PER_MS
-        k_ms, p_ms, raw = time_pair(
-            lambda: nf.expand_frontier(*a, sizes=sizes),
-            lambda: nf.expand_frontier_reference(*a, sizes=sizes),
-        )
+        ms, raw = time_turns(fns)
         totals["expand_frontier"] = [
-            x + y for x, y in zip(totals["expand_frontier"], (k_ms, p_ms, bound))
+            x + y for x, y in zip(totals["expand_frontier"], (ms["shipped"], ms["twin"], bound))
         ]
-        log(f"[12] expand_frontier call {i} (h_next {h}, drop {drop}): {cur.shape[0]} tokens, "
-            f"{out.lanes} lanes, {messages} messages, {sizes[1]} survivors, {distinct} distinct "
-            f"neighbours; kernel {raw[0]:.4f}/{raw[1]:.4f} ms, twin {raw[2]:.4f}/{raw[3]:.4f} ms, "
-            f"bound {bound:.4f} ms ({nbytes} B), {100 * bound / k_ms:.1f} % of bound; random "
-            f"ok_bits sectors {messages} ({32 * messages / HBM_BYTES_PER_MS:.4f} ms of 32-byte "
-            f"sectors at the HBM rate)")
+        first_design["expand_frontier"] += ms.get("first-design", ms["shipped"])
+        log(f"[12] expand_frontier call {i} (h_next {h}, drop {drop}, route "
+            f"{nf.expand_route(ok_bits.shape[0], h, out.lanes)}): {cur.shape[0]} tokens, "
+            f"{out.lanes} lanes, "
+            f"{messages} messages, {sizes[1]} survivors, {distinct} distinct neighbours; "
+            f"ms (two turns each): {raw}; bound {bound:.4f} ms ({nbytes} B); shipped "
+            f"{ms['shipped']:.4f} ms = {100 * bound / ms['shipped']:.1f} % of bound"
+            + density
+            + (f", first design {ms['first-design']:.4f} ms, summary route "
+               f"{ms['summary']:.4f} ms" if h >= 0 else ""))
     for i, (a, win) in enumerate(calls["forward_winners"]):
         keys, parents, seen = a
-        e = max_err(win, nf.forward_winners_reference(*a))
-        errs["forward_winners"] = max(errs["forward_winners"], e)
+        want = nf.forward_winners_reference(*a)
+        errs["forward_winners"] = max(errs["forward_winners"], max_err(win, want))
+        for route in ("global-table", "partition"):
+            e = max_err(nf.forward_winners_cuda(*a, route=route), want)
+            errs["forward_winners"] = max(errs["forward_winners"], e)
         n, m = keys.shape[0], seen.shape[0]
         nbytes = 13 * n + 8 * m
         bound = nbytes / HBM_BYTES_PER_MS
-        k_ms, p_ms, raw = time_pair(
-            lambda: nf.forward_winners(*a), lambda: nf.forward_winners_reference(*a)
-        )
+        ms, raw = time_turns({
+            "shipped": lambda: nf.forward_winners(*a),
+            "first-design": lambda: nf.forward_winners_cuda(*a, route="global-table"),
+            "partition": lambda: nf.forward_winners_cuda(*a, route="partition"),
+            "twin": lambda: nf.forward_winners_reference(*a),
+        })
         totals["forward_winners"] = [
-            x + y for x, y in zip(totals["forward_winners"], (k_ms, p_ms, bound))
+            x + y for x, y in zip(totals["forward_winners"], (ms["shipped"], ms["twin"], bound))
         ]
-        log(f"[12] forward_winners call {i}: {n} lanes, {m} earlier keys, {int(win.sum())} "
-            f"winners; kernel {raw[0]:.4f}/{raw[1]:.4f} ms, twin {raw[2]:.4f}/{raw[3]:.4f} ms, "
-            f"bound {bound:.4f} ms ({nbytes} B), {100 * bound / k_ms:.1f} % of bound; random "
-            f"table sectors about {m + 2 * n} (table of {nf.table_capacity(m + n)} slots)")
+        first_design["forward_winners"] += ms["first-design"]
+        log(f"[12] forward_winners call {i} (route {nf.winner_route(n + m)}): {n} lanes, {m} "
+            f"earlier keys, {int(win.sum())} winners, {nf.winner_partitions(n + m)} "
+            f"partitions; ms (two turns each): {raw}; bound {bound:.4f} ms ({nbytes} B); "
+            f"shipped {ms['shipped']:.4f} ms = {100 * bound / ms['shipped']:.1f} % of bound, "
+            f"first design {ms['first-design']:.4f} ms, partitioned {ms['partition']:.4f} ms")
     check_errs(errs, "at the s21 cycle hop shapes")
-    log(f"[12] walk kernels over one s21 cycle constraint-0 run (kernel, twin, bound ms): "
-        f"{totals}")
-    return totals
+    log(f"[12] walk kernels over one s21 cycle constraint-0 run (shipped, twin, bound ms): "
+        f"{totals}; first design {first_design}")
+    route_crossovers(calls, errs)
+    return {k: (*v, None) for k, v in totals.items()}
+
+
+# Cuts of the largest hop for route_crossovers: every k-th token of the
+# largest filtered expansion (75 M lanes at the s21 cycle hop 3), every
+# k-th lane of the largest winners call (855 K entries at hop 2).
+EXPAND_CUTS = (64, 40, 32, 24, 20, 16, 12, 8)
+WINNER_CUTS = (8, 6, 4, 3, 2, 1)
+
+
+def route_crossovers(calls, errs):
+    """Phase 12: both designs of each walk kernel, timed in turns by
+    CUDA-graph replay, on cuts of the largest recorded call around the
+    size where the shipped route changes (``PLANE_MIN_LANES``,
+    ``WINNER_PARTITION_MIN``); the two outputs must be equal."""
+    filtered = [(a, out) for a, out in calls["expand_frontier"] if a[5] >= 0]
+    a, out = max(filtered, key=lambda c: c[1].lanes)
+    ptr, col, cur, parent, ok_bits, h, r, drop = a
+    rows = []
+    for k in EXPAND_CUTS:
+        cut = (ptr, col, cur[::k].contiguous(), parent[::k].contiguous(), ok_bits, h, r, drop)
+        one = nf.expand_frontier_cuda(*cut, route="first-design")
+        other = nf.expand_frontier_cuda(*cut, route="summary")
+        errs["expand_frontier"] = max(errs["expand_frontier"], expansion_err(other, one))
+        sizes = (one.lanes, one.tok.shape[0])
+        ms, _ = time_turns({
+            route: (lambda route=route: nf.expand_frontier_cuda(*cut, sizes=sizes, route=route))
+            for route in ("first-design", "summary")
+        })
+        rows.append((one.lanes, round(ms["first-design"], 4), round(ms["summary"], 4)))
+    log(f"[12] expand_frontier crossover (every k-th token of the {out.lanes}-lane hop, k "
+        f"{EXPAND_CUTS}; lanes, first design ms, summary ms; PLANE_MIN_LANES "
+        f"{nf.PLANE_MIN_LANES}): {rows}")
+    keys, parents, seen = max(calls["forward_winners"], key=lambda c: c[0][0].shape[0])[0]
+    rows = []
+    for k in WINNER_CUTS:
+        cut = (keys[::k].contiguous(), parents[::k].contiguous(), seen)
+        one = nf.forward_winners_cuda(*cut, route="global-table")
+        other = nf.forward_winners_cuda(*cut, route="partition")
+        errs["forward_winners"] = max(errs["forward_winners"], max_err(other, one))
+        ms, _ = time_turns({
+            route: (lambda route=route: nf.forward_winners_cuda(*cut, route=route))
+            for route in ("global-table", "partition")
+        })
+        rows.append((cut[0].shape[0] + seen.shape[0], round(ms["global-table"], 4),
+                     round(ms["partition"], 4)))
+    check_errs(errs, "on the crossover cuts")
+    log(f"[12] forward_winners crossover (every k-th lane of the hop, k {WINNER_CUTS}, with its "
+        f"{seen.shape[0]} earlier keys; entries, global table ms, partitioned ms; "
+        f"WINNER_PARTITION_MIN {nf.WINNER_PARTITION_MIN}): {rows}")
 
 
 def main() -> int:
@@ -776,10 +1014,14 @@ def main() -> int:
     _build.build_all()
     log(f"[2] kernels built (one nvcc per source, in parallel) and loaded in "
         f"{time.perf_counter() - t0:.2f} s (nvcc seconds {_build.build_seconds})")
+    for name, out in _build.build_logs.items():
+        log(f"[2] {name}.cu, nvcc -Xptxas -v (kernel, registers, static smem B, spill "
+            f"stores + loads B): {ptxas_usage(out)}")
 
     errs = {k: 0 for k in KERNELS}
     compare_kernels_small(dev, errs)
     compare_walk_kernels_small(dev, errs)
+    compare_walk_routes_small(dev, errs)
 
     with open(os.path.join(GOLDEN_BASE, "golden_meta.json")) as f:
         golden = json.load(f)
@@ -853,7 +1095,7 @@ def main() -> int:
             "plain_ms": times[k][1],
             "bound_ms": times[k][2],
             "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": times[k][3] if len(times[k]) > 3 else None,
         }
         for k in KERNELS
     ]}), flush=True)

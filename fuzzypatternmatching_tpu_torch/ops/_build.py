@@ -24,6 +24,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel: build_logs
 ]
 
 _P = ctypes.c_void_p
@@ -49,15 +50,30 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _P, _P, _P, _P, _P,
         ],
+        "fpm_bit_plane": [_P, ctypes.c_int64, ctypes.c_int32, _P, ctypes.c_int64, _P],
+        "fpm_plane_summary": [_P, ctypes.c_int64, ctypes.c_int32, _P, ctypes.c_int64, _P],
+        "fpm_plane_count": [
+            _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, _P, _P, ctypes.c_int32, ctypes.c_int64,
+            _P, _P, _P, _P, _P,
+        ],
+        "fpm_plane_write": [
+            _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P, _P, _P, _P, _P, _P, _P,
+        ],
         "fpm_forward_winners": [
             _P, ctypes.c_int64, _P, _P, ctypes.c_int64, _P, _P, ctypes.c_int64,
             _P, _P,
+        ],
+        "fpm_forward_winners_part": [
+            _P, ctypes.c_int64, _P, _P, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int64, _P, _P, _P, _P, _P, _P, _P,
         ],
     },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
+build_logs: dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -111,6 +127,7 @@ def _build_missing(names) -> None:
             continue
         os.replace(tmp, _so_path(name))
         build_seconds[name] = time.perf_counter() - t0
+        build_logs[name] = out
     if failed:
         raise RuntimeError("\n".join(failed))
 

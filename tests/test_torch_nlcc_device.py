@@ -10,6 +10,10 @@ and its kernels (ops/nlcc_frontier.py) on the CPU.
   out here (``np.repeat`` expansion, ``lexsort`` winners), with empty
   frontiers, zero-degree tokens, a hub row, 1 and 4 ranks, every lane
   filtered and none, and keys repeating within and across hops;
+* the host side of the kernels' routes against numpy: the bit plane and
+  its summary (V not a multiple of 32; bits 0, 30 and 31), the plane and
+  summary layouts and the route chosen from V and the lane count, the
+  winners' partition count, table size and route;
 * the torch MatchEngine in each NLCC placement against the JAX
   MatchEngine on the golden configurations.
 
@@ -284,6 +288,117 @@ def test_forward_winners_twin_across_hops():
     w2 = nf.forward_winners(*_as_torch(k2, p2, seen)).numpy()
     assert np.array_equal(w2, _winners_numpy(k2, p2, seen))
     assert not np.isin(k2[w2], seen).any()
+
+
+# The hop's bit plane: one bit a vertex in int32 words, whole 16 bytes.
+PLANE_WORDS = {
+    1: 4, 32: 4, 128: 4, 129: 8, 300: 12, 1_851_392: 57_856, 1_851_393: 57_860,
+    1 << 21: 65_536, (1 << 21) + 7: 65_540, 1 << 24: 524_288, 14_811_137: 462_852,
+}
+
+
+@pytest.mark.parametrize("v", list(PLANE_WORDS))
+def test_plane_words(v):
+    words = nf.plane_words(v)
+    assert words == PLANE_WORDS[v]
+    assert words % 4 == 0 and 32 * words >= v > 32 * (words - 4)
+
+
+# The summary that each CTA holds: one bit per 2**g vertices, the finest
+# that fits SUMMARY_BYTES (V = 1,851,392: the plane itself).
+SUMMARY_GROUPS = {
+    1: 0, 300: 0, 1_851_392: 0, 1_851_393: 1, (1 << 21) + 7: 1, 1 << 22: 2,
+    1 << 23: 3, 14_811_136: 3, 14_811_137: 4, 1 << 24: 4, (1 << 31) - 1: 11,
+}
+
+
+@pytest.mark.parametrize("v", list(SUMMARY_GROUPS))
+def test_summary_layout_and_route(v):
+    g, words = nf.summary_layout(v)
+    assert g == SUMMARY_GROUPS[v]
+    assert words % 4 == 0 and 32 * words >= -(-v // (1 << g))
+    assert 4 * words <= nf.SUMMARY_BYTES
+    assert g == 0 or 16 * -(-v // (128 << (g - 1))) > nf.SUMMARY_BYTES  # finest that fits
+    assert g > 0 or words == nf.plane_words(v)
+    big = nf.PLANE_MIN_LANES
+    assert nf.expand_route(v, 0, big) == nf.expand_route(v, 30, big) == f"summary-{1 << g}"
+    assert nf.expand_route(v, 0, big - 1) == nf.expand_route(v, 30, 1) == "first-design"
+    assert nf.expand_route(v, -1, big) == nf.expand_route(v, -1, 1) == "unfiltered"
+
+
+@pytest.mark.parametrize("g", [0, 1, 2, 5, 6])
+@pytest.mark.parametrize("v", [33, 1000, 4099])
+def test_plane_summary_twin_matches_numpy(v, g):
+    rng = np.random.RandomState(v + g)
+    bits = rng.rand(v) < 0.05
+    n_words = 4 * -(-v // 128)
+    padded = np.zeros(n_words * 32, dtype=np.uint64)
+    padded[:v] = bits
+    plane = (padded.reshape(-1, 32) << np.arange(32, dtype=np.uint64)).sum(1).astype(np.uint32)
+    s_words = 4 * -(-v // (128 << g))
+    groups = np.zeros(s_words * 32 << g, dtype=bool)
+    groups[:v] = bits
+    want_bits = groups.reshape(-1, 1 << g).any(1).astype(np.uint64)
+    want = (want_bits.reshape(-1, 32) << np.arange(32, dtype=np.uint64)).sum(1).astype(np.uint32)
+    got = nf.plane_summary(torch.from_numpy(plane.view(np.int32)), g, s_words)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("h", [0, 30, 31])
+@pytest.mark.parametrize("v", [1, 31, 32, 33, 1000, 4099])
+def test_bit_plane_twin_matches_numpy(v, h):
+    """The hop's bit plane, for V not a multiple of 32 too, and bit 31
+    (which makes the int32 words negative)."""
+    rng = np.random.RandomState(v * 3 + h)
+    ok = rng.randint(0, 1 << 32, size=v, dtype=np.uint64).astype(np.uint32)
+    n_words = nf.plane_words(v)
+    bits = np.zeros(n_words * 32, dtype=np.uint64)
+    bits[:v] = (ok >> h) & 1
+    want = (bits.reshape(-1, 32) << np.arange(32, dtype=np.uint64)).sum(1).astype(np.uint32)
+    got = nf.bit_plane(torch.from_numpy(ok.view(np.int32)), h, n_words)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    with pytest.raises(ValueError):
+        nf.bit_plane(torch.from_numpy(ok.view(np.int32)), 32, n_words)
+
+
+@pytest.mark.parametrize(
+    "n, parts",
+    [(0, 1), (1, 1), (1024, 1), (1025, 2), (28_347, 32), (855_213, 1024), (10**9, 4096)],
+)
+def test_winner_partitions_and_tables(n, parts):
+    """About 1,024 entries a partition (855,213 entries: the s21 cycle hop
+    2), and tables of twice the share with a margin, within a CTA's 227 KB
+    and at most half full where the share is as expected."""
+    assert nf.winner_partitions(n) == parts
+    share = -(-n // parts)
+    assert parts == nf.MAX_PARTITIONS or share <= nf.WINNER_PART_ENTRIES
+    assert parts == 1 or n > (parts // 2) * nf.WINNER_PART_ENTRIES
+    slots = nf.winner_table_slots(n, parts)
+    assert 16 * slots <= 227 * 1024
+    assert slots == nf.WINNER_TABLE_SLOTS or slots >= 2 * share + 64
+
+
+@pytest.mark.parametrize("n", [0, 1, nf.WINNER_PARTITION_MIN - 1, nf.WINNER_PARTITION_MIN, 10**8])
+def test_winner_route(n):
+    want = "partition" if n >= nf.WINNER_PARTITION_MIN else "global-table"
+    assert nf.winner_route(n) == want
+
+
+def test_card_entry_points_refuse_cpu_tensors():
+    """The kernels' own entry points take CUDA tensors only: a CPU tensor
+    reaches the twin through the wrapper, never a kernel."""
+    expand_args = _as_torch(*_expand_inputs(0, 10, False, 0.5))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        nf.expand_frontier_cuda(*expand_args, 1, 1, True)
+    keys, parents, seen = _as_torch(*_winner_inputs(2, 40, 40, 0))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        nf.forward_winners_cuda(keys, parents, seen)
+    nf.reset_launches()
+    nf.expand_frontier(*expand_args, 1, 1, True)
+    nf.forward_winners(keys, parents, seen)
+    assert nf.routes == {} and nf.launches == {"expand_frontier": 0, "forward_winners": 0}
 
 
 def test_wrappers_reject_wrong_inputs():

@@ -500,3 +500,202 @@ def test_device_nlcc_on_cuda_matches_host(cuda_device, seed):
                 map(tuple, dev.subgraphs.tolist())
             )
         assert np.array_equal(fh.keys, fd.keys)
+
+
+# -- the routes of the walk kernels -------------------------------------------
+# expand_frontier keeps a summary of the hop's bit plane (one bit per 1, 2,
+# 4, ... vertices, chosen from V) in each CTA's shared memory for large
+# filtered hops, and reads the ok_bits word (the first design) for the
+# others. forward_winners builds shared-memory tables per hash partition
+# for large calls and moves a partition that outgrows its table to global
+# memory; small calls take one global table (the first design).
+
+# V: the route of a large filtered hop
+ROUTE_VERTICES = {
+    300: "summary-1",  # the summary is the plane
+    (1 << 21) + 7: "summary-2",  # R-MAT s21 (+7: V not a multiple of 32)
+    1 << 22: "summary-4",
+    (1 << 23) - 5: "summary-8",
+    (1 << 24) + 3: "summary-16",  # s24
+}
+
+
+def _sparse_expand_inputs(seed, v, n_tok=3000, rows=2000, density=0.5):
+    """expand_frontier inputs over ``v`` vertices with ``rows`` non-empty
+    rows (a hub row of 20,000 among them), neighbours spread over all of
+    ``v``, and tokens on non-empty and on empty rows."""
+    rng = np.random.RandomState(seed)
+    deg = np.zeros(v, dtype=np.int64)
+    full = rng.randint(0, v, size=rows)
+    deg[full] = rng.randint(1, 40, size=rows)
+    deg[full[0]] = 20000
+    ptr = np.zeros(v + 1, dtype=np.int64)
+    np.cumsum(deg, out=ptr[1:])
+    col = rng.randint(0, v, size=int(ptr[-1])).astype(np.int32)
+    ok_bits = rng.randint(-(1 << 31), 1 << 31, size=v, dtype=np.int64)
+    ok_bits[rng.rand(v) > density] = 0
+    ok_bits = ok_bits.astype(np.int32)
+    cur = np.concatenate([full[rng.randint(0, rows, size=n_tok - 100)],
+                          rng.randint(0, v, size=100)]).astype(np.int32)
+    parent = rng.randint(0, v, size=n_tok).astype(np.int32)
+    back = np.nonzero(ptr[cur + 1] > ptr[cur])[0][::3]
+    parent[back] = col[ptr[cur[back]]]
+    return ptr, col, cur, parent, ok_bits
+
+
+def _assert_expansion_equal(got, want):
+    assert torch.equal(got.tok.cpu(), want.tok)
+    assert torch.equal(got.nbr.cpu(), want.nbr)
+    assert torch.equal(got.msg_per_rank.cpu(), want.msg_per_rank)
+    assert got.lanes == want.lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [0, 30, -1])
+@pytest.mark.parametrize("v", list(ROUTE_VERTICES))
+def test_expand_frontier_routes_match_twin(cuda_device, v, h):
+    """The first and the unfiltered design, chosen from the lane count, and
+    every summary size, chosen from V (forced at this lane count), against
+    the twin."""
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    summary = ROUTE_VERTICES[v]
+    arrays = _sparse_expand_inputs(v % 1000 + h, v)
+    dev_arrays = _as_torch(*arrays, dev=cuda_device)
+    for r, drop in ((1, True), (4, False), (5000, True)):
+        want = nf.expand_frontier_reference(*_as_torch(*arrays), h, r, drop)
+        assert 0 < want.lanes < nf.PLANE_MIN_LANES
+        route = "unfiltered" if h < 0 else "first-design"
+        assert nf.expand_route(v, h, want.lanes) == route
+        assert nf.expand_route(v, h, nf.PLANE_MIN_LANES) == (summary if h >= 0 else route)
+        nf.reset_launches()
+        got = nf.expand_frontier(*dev_arrays, h, r, drop)
+        torch.cuda.synchronize()
+        assert nf.routes == {route: 1} and nf.launches["expand_frontier"] == 1
+        _assert_expansion_equal(got, want)
+        assert 0 < want.tok.shape[0] < want.lanes or (h < 0 and not drop)
+        if h < 0:
+            continue
+        nf.reset_launches()
+        got = nf.expand_frontier_cuda(*dev_arrays, h, r, drop, route="summary")
+        torch.cuda.synchronize()
+        assert nf.routes == {summary: 1}
+        _assert_expansion_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [0, 30])
+def test_expand_frontier_large_hop_takes_summary_route(cuda_device, h):
+    """A hop of at least PLANE_MIN_LANES lanes takes the summary route by
+    itself (here that many tokens on a hub row of 20,000)."""
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    ptr, col, cur, parent, ok_bits = _sparse_expand_inputs(h + 5, 1 << 16)
+    hub = int(np.argmax(np.diff(ptr)))
+    n_hub = nf.PLANE_MIN_LANES // 20000 + 50
+    cur = np.concatenate([cur, np.full(n_hub, hub, dtype=np.int32)])
+    parent = np.concatenate([parent, parent[:n_hub]])
+    arrays = (ptr, col, cur, parent, ok_bits)
+    want = nf.expand_frontier_reference(*_as_torch(*arrays), h, 4, True)
+    assert want.lanes >= nf.PLANE_MIN_LANES
+    nf.reset_launches()
+    got = nf.expand_frontier(*_as_torch(*arrays, dev=cuda_device), h, 4, True)
+    torch.cuda.synchronize()
+    assert nf.routes == {"summary-1": 1}
+    _assert_expansion_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["summary", "first-design"])
+@pytest.mark.parametrize("h", [0, 30])
+def test_expand_frontier_forced_routes_match_twin(cuda_device, route, h):
+    """The summary and the first design, forced at the s21 V."""
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    arrays = _sparse_expand_inputs(h + 11, (1 << 21) + 7)
+    want = nf.expand_frontier_reference(*_as_torch(*arrays), h, 4, True)
+    got = nf.expand_frontier_cuda(*_as_torch(*arrays, dev=cuda_device), h, 4, True, route=route)
+    torch.cuda.synchronize()
+    _assert_expansion_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [0, 30, 31])
+@pytest.mark.parametrize("v", [1, 31, 33, 3000, (1 << 21) + 7])
+def test_bit_plane_matches_twin_on_cuda(cuda_device, v, h):
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    rng = np.random.RandomState(v + h)
+    ok = torch.from_numpy(rng.randint(-(1 << 31), 1 << 31, size=v, dtype=np.int64).astype(np.int32))
+    n_words = nf.plane_words(v)
+    got = nf.bit_plane(ok.to(cuda_device), h, n_words)
+    torch.cuda.synchronize()
+    want = nf.bit_plane_reference(ok, h, n_words)
+    assert torch.equal(got.cpu(), want)
+    for g in (0, 1, 3, 5, 7):
+        s_words = 4 * -(-v // (128 << g))
+        summary = nf.plane_summary(got, g, s_words)
+        torch.cuda.synchronize()
+        assert torch.equal(summary.cpu(), nf.plane_summary_reference(want, g, s_words))
+
+
+WINNER_ROUTE_CASES = WINNER_CASES + [(100000, 5000, 3000), (300000, 200000, 50000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [None, 2, 64, 1000])
+@pytest.mark.parametrize("case", range(len(WINNER_ROUTE_CASES)))
+def test_forward_winners_partitions_match_twin(cuda_device, case, slots):
+    """The partitioned winners, with shared-memory tables of the default
+    size and with small ones that force partitions (all, or some) onto
+    their global-memory tables."""
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    arrays = _winner_inputs(case, *WINNER_ROUTE_CASES[case])
+    want = nf.forward_winners_reference(*_as_torch(*arrays))
+    dev_arrays = _as_torch(*arrays, dev=cuda_device)
+    got = nf.forward_winners_cuda(*dev_arrays, route="partition", table_slots=slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    nf.reset_launches()
+    got = nf.forward_winners(*dev_arrays)  # below WINNER_PARTITION_MIN: the first design
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if len(arrays[0]):
+        assert nf.routes == {"global-table": 1}
+
+
+@pytest.mark.cuda
+def test_forward_winners_large_hop_takes_partition_route(cuda_device):
+    """WINNER_PARTITION_MIN entries or more take the partitioned design by
+    themselves."""
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    arrays = _winner_inputs(11, nf.WINNER_PARTITION_MIN, 400000, 1000)
+    nf.reset_launches()
+    got = nf.forward_winners(*_as_torch(*arrays, dev=cuda_device))
+    torch.cuda.synchronize()
+    assert nf.routes == {"partition": 1}
+    assert torch.equal(got.cpu(), nf.forward_winners_reference(*_as_torch(*arrays)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [None, 64])
+def test_forward_winners_across_hops_on_cuda(cuda_device, slots):
+    """Two hops: the first hop's winners join the earlier keys; keys repeat
+    within each hop and across the two."""
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    kw = {"route": "partition", "table_slots": slots}
+    keys, parents, seen = _as_torch(*_winner_inputs(9, 300000, 40000, 20000), dev=cuda_device)
+    win = nf.forward_winners_cuda(keys, parents, seen, **kw)
+    want = nf.forward_winners_reference(keys.cpu(), parents.cpu(), seen.cpu())
+    assert torch.equal(win.cpu(), want)
+    seen = torch.cat([seen, keys[win]])
+    keys2 = torch.cat([keys[:100000], keys[:50000] + 1])
+    parents2 = torch.cat([parents[:100000], parents[:50000]])
+    got = nf.forward_winners_cuda(keys2, parents2, seen, **kw)
+    torch.cuda.synchronize()
+    want = nf.forward_winners_reference(keys2.cpu(), parents2.cpu(), seen.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < 150000
