@@ -51,7 +51,20 @@ NVIDIA GPU:
      both designs of each kernel on cuts of the largest hop (every k-th
      token or lane) around the size where the route changes;
  13. one s21 cycle search (device mode) under torch.profiler, and one
-     under cProfile (host time by function).
+     under cProfile (host time by function);
+ 14. the s21 tree search in counting mode (counting=True, compact
+     continuation), warm and timed: the anchors of phase 5, and launches of
+     rev_alive_lookup and gather_accept_or;
+ 15. the s21 tree search with edge metadata: every edge carries 55, the
+     tree corpus's only pattern_edge_data value; the same anchors, launches
+     of rev_alive_lookup and none of the walk kernels (metadata keeps every
+     constraint on the host engine);
+ 16. the s21 tree search on the flat LCC engine (lcc_engine="flat"): the
+     same anchors, and LP rows equal to phase 6's compact=False rows;
+ 17. the device time of one full-graph non-init superstep at the state
+     after the init superstep, by CUDA-graph replay in turns: the bucketed
+     engine's default, counting and metadata branches and the flat
+     engine's superstep, each beside its bytes bound.
 
 Any failure ends the run with a non-zero exit code, and so does a run
 without a CUDA device or without the rest of the repository. The last two
@@ -255,6 +268,13 @@ def timed_search(engine, anchors, what):
     return r, dt, lp, tp
 
 
+def lp_rows(r):
+    """(iteration, step, active vertices, active edges, messages) of each
+    LP row."""
+    return [(x.itr, x.step, x.active_vertices, x.active_edges, x.messages)
+            for x in r.rows if x.phase == "LP"]
+
+
 def run_s21(g, labels, pattern, constraints, dev, compact):
     tag = "[5]" if compact else "[6]"
     t0 = time.perf_counter()
@@ -282,7 +302,7 @@ def run_s21(g, labels, pattern, constraints, dev, compact):
             f"host loadavg {os.getloadavg()}")
     log(f"{tag} anchors OK on every run {S21_ANCHORS}; best {min(times):.4f} s = "
         f"{r.traversed_edges / min(times) / 1e6:.2f} M traversed edges/s")
-    return engine, launches
+    return engine, launches, r
 
 
 def time_cuda(fn, reps=20, graph=True):
@@ -994,6 +1014,109 @@ def route_crossovers(calls, errs):
         f"WINNER_PARTITION_MIN {nf.WINNER_PARTITION_MIN}): {rows}")
 
 
+def mode_search(g, labels, pattern, constraints, dev, tag, what, **kw):
+    """Build a MatchEngine and run its s21 tree search warm and timed,
+    asserting the anchors on both; returns (engine, result, launches of
+    the superstep kernels, launches of the walk kernels)."""
+    t0 = time.perf_counter()
+    engine = MatchEngine(g, labels, pattern, constraints, device=dev, **kw)
+    torch.cuda.synchronize()
+    log(f"{tag} {what} engine build: {time.perf_counter() - t0:.3f} s")
+    ops.reset_launches()
+    nf.reset_launches()
+    r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 {what} warm")
+    launches, walk = dict(ops.launches), dict(nf.launches)
+    log(f"{tag} {what} warm search: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s), "
+        f"iterations={r.iterations}, {summary(r)}, kernel launches {launches}, "
+        f"walk kernel launches {walk}")
+    r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 {what} timed")
+    log(f"{tag} {what} timed search: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s, "
+        f"other {dt - lp - tp:.4f} s), {r.traversed_edges / dt / 1e6:.2f} M traversed "
+        f"edges/s, host loadavg {os.getloadavg()}; anchors OK {S21_ANCHORS}")
+    return engine, r, launches, walk
+
+
+def run_s21_modes(g, labels, pattern, constraints, dev, rows_full):
+    """Phases 14-16: the s21 tree search in counting mode, with edge
+    metadata, and on the flat LCC engine. Returns their engines."""
+    counting, _, launches, _ = mode_search(
+        g, labels, pattern, constraints, dev, "[14]", "counting", counting=True
+    )
+    for k in ("rev_alive_lookup", "gather_accept_or"):
+        if launches[k] == 0:
+            raise AssertionError(f"{k}: no launch during the s21 counting search")
+    # the tree corpus's pattern_edge_data carries 55 on every pattern edge
+    # (pattern/builtin.py): every graph edge carries 55 too
+    values = set(pattern.edge_data.tolist())
+    if values != {55}:
+        raise AssertionError(f"tree corpus pattern_edge_data values {values}")
+    edge_data = np.full(g.num_edges, 55, dtype=np.int64)
+    meta, _, launches, walk = mode_search(
+        g, labels, pattern, constraints, dev, "[15]", "metadata", edge_data=edge_data
+    )
+    if meta._meta is None or launches["rev_alive_lookup"] == 0 or any(walk.values()):
+        raise AssertionError(f"s21 metadata search: launches {launches}, walk kernels {walk}")
+    flat, r, launches, _ = mode_search(
+        g, labels, pattern, constraints, dev, "[16]", "flat engine", lcc_engine="flat"
+    )
+    if lp_rows(r) != rows_full:
+        raise AssertionError("s21 flat engine: LP rows differ from the compact=False rows")
+    if launches["rev_alive_lookup"] == 0:
+        raise AssertionError("s21 flat engine: no rev_alive_lookup launch")
+    log(f"[16] flat engine LP rows equal the bucketed compact=False rows "
+        f"({len(rows_full)} rows)")
+    return {"counting": counting, "metadata": meta, "flat": flat}
+
+
+def superstep_bytes(lcc):
+    """Bytes one non-init superstep must move: each input it reads once
+    (the state, the engine's planes and tables), each output written once
+    (tv, alive, the cleared tp_flag)."""
+    v = lcc.num_vertices
+    if hasattr(lcc, "buckets"):  # bucketed
+        n_flags = lcc.num_slots + 1
+        planes = [lcc._rev_flat]
+        for d in lcc._dev:
+            planes += [d.adj, d.seg_id, d.seg_rows]
+            planes += [x for x in (d.meta, d.cls) if x is not None]
+            if lcc.num_ranks > 1:
+                planes += [d.own_rows, d.own_seg]
+    else:
+        n_flags = lcc.num_edges + 1
+        planes = [lcc.col, lcc.erow, lcc.rev]
+        planes += [x for x in (lcc.col_class, lcc.meta_code) if x is not None]
+        if lcc.num_ranks > 1:
+            planes += [lcc.owner, lcc.eowner]
+    tables = list(lcc.meta_allow or [])
+    read = 4 * v + 2 * n_flags + sum(t.numel() * t.element_size() for t in planes + tables)
+    return read + 4 * v + 2 * n_flags
+
+
+def time_mode_supersteps(engines):
+    """Phase 17: one non-init superstep over the full s21 graph at the
+    state after the init superstep, per branch, timed by CUDA-graph replay
+    in turns beside its bytes bound."""
+    fns, bounds = {}, {}
+    for name in ("default", "counting", "metadata", "flat"):
+        lcc = engines[name].lcc
+        st, _, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
+        alive = st.alive if hasattr(st, "alive") else st.edge_alive
+        fns[name] = (lambda lcc=lcc, st=st, alive=alive:
+                     lcc._superstep(st.tv, alive, st.tp_flag, init=False))
+        nbytes = superstep_bytes(lcc)
+        bounds[name] = (nbytes, nbytes / HBM_BYTES_PER_MS)
+        log(f"[17] {name}: {int(alive.sum())} alive flags of {alive.numel()}, "
+            f"{int((st.tv != 0).sum())} live vertices after the init superstep")
+    raw = {k: [] for k in fns}
+    for k in list(fns) + list(reversed(fns)):
+        raw[k].append(time_cuda(fns[k], reps=5))
+    for k, (nbytes, bound) in bounds.items():
+        ms = sum(raw[k]) / 2
+        log(f"[17] {k} superstep: {ms:.4f} ms (two turns {[round(x, 4) for x in raw[k]]}), "
+            f"bound {bound:.4f} ms ({nbytes} B over {HBM_BYTES_PER_MS:.3g} B/ms), "
+            f"{100 * bound / ms:.1f} % of bound")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1056,8 +1179,8 @@ def main() -> int:
         pattern, constraints = load_tree_pattern(tmp)
     log(f"[5] R-MAT s21: V={g.num_vertices} E={g.num_edges}; generate "
         f"{t1 - t0:.2f} s, CSR + labels {t2 - t1:.2f} s")
-    compact, launches = run_s21(g, labels, pattern, constraints, dev, True)
-    full, launches_full = run_s21(g, labels, pattern, constraints, dev, False)
+    compact, launches, _ = run_s21(g, labels, pattern, constraints, dev, True)
+    full, launches_full, r_full = run_s21(g, labels, pattern, constraints, dev, False)
     times = kernels_at_s21(full.lcc, errs)["post-init"]
     profile_search(compact, "s21 compact")
     profile_search(full, "s21 compact=False")
@@ -1073,6 +1196,11 @@ def main() -> int:
             f"forwarded keys, host s, device s): {rows}")
     profile_search(cycle, "s21 cycle nlcc_mode=device", S21_CYCLE_ANCHORS, "[13]")
     host_profile(cycle.run, "[13] s21 cycle nlcc_mode=device search")
+    del cycle
+
+    engines = run_s21_modes(g, labels, pattern, constraints, dev, lp_rows(r_full))
+    engines["default"] = compact
+    time_mode_supersteps(engines)
 
     bad = sorted(
         k for k in sys.modules

@@ -4,12 +4,15 @@ Usage:
   python -m fuzzypatternmatching_tpu_torch.cli.run_pattern_matching \\
       -i <graph_db> -p <pattern_dir> -o <result_dir> \\
       [-r <output_ranks>] [-x <tds_batch>] [--max-iterations N] \\
+      [-e <edge_data_base | db>] [--counting] [--lcc-engine {bucketed,flat}] \\
       [--no-compact] [--device {cuda,cpu}]
 
 Searches ``<pattern_dir>/0`` on a graph DB (the JAX package's
 ``graph.storage.save`` writes one; ``graph/storage.py`` reads it) and writes
 the result tree with ``io/results.py::write_results`` — the layout of the
-JAX package's CLI.
+JAX package's CLI. ``-e`` (edge-metadata matching), ``--counting`` and
+``--lcc-engine`` behave as the JAX package's CLI flags of the same names;
+``--lcc-engine sharded`` (the multi-device plane) is not ported.
 ``--device cuda`` (the default) requires a CUDA card; there is no fallback
 to the CPU.
 """
@@ -21,6 +24,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..engine.driver import MatchEngine
@@ -31,31 +35,107 @@ from ..pattern.nonlocal_constraint import load_nonlocal_constraints
 from ..pattern.pattern_graph import load_pattern_graph
 
 
+def _edge_data_from_files(ap, graph, base: str) -> np.ndarray:
+    """Per-CSR-edge metadata from the files ``<base>*`` (src dst data
+    rows). Each row applies to BOTH CSR directions (graphs are
+    symmetrized; a file listing each undirected edge once must not leave
+    the reverse direction at the default, which the enforcement would kill
+    asymmetrically). Conflicting values for one direction are an input
+    error; edges with no row get value 0."""
+    import glob
+
+    from ..generators.edge_list import read_edge_lists
+
+    files = sorted(glob.glob(base + "*")) or [base]
+    src, dst, data = read_edge_lists(files, undirected=False)
+    if data is None:
+        ap.error("edge metadata files need a third (data) column")
+    vv = np.uint64(graph.num_vertices)
+    src2 = np.concatenate([src, dst]).astype(np.uint64)
+    dst2 = np.concatenate([dst, src]).astype(np.uint64)
+    data2 = np.concatenate([data, data])
+    want = src2 * vv + dst2
+    order = np.argsort(want, kind="stable")
+    w_s, d_s = want[order], data2[order]
+    dup = w_s[1:] == w_s[:-1]
+    if np.any(dup & (d_s[1:] != d_s[:-1])):
+        bad = np.nonzero(dup & (d_s[1:] != d_s[:-1]))[0][0]
+        u, v = int(w_s[bad] // vv), int(w_s[bad] % vv)
+        ap.error(
+            f"conflicting edge metadata for ({u}, {v}): "
+            f"{int(d_s[bad])} vs {int(d_s[bad + 1])}"
+        )
+    first = np.concatenate([[True], ~dup])
+    w_s, d_s = w_s[first], d_s[first]
+    keys = graph.edge_row.astype(np.uint64) * vv + graph.cols.astype(np.uint64)
+    pos = np.minimum(np.searchsorted(w_s, keys), len(w_s) - 1)
+    ok = w_s[pos] == keys
+    edge_data = np.zeros(graph.num_edges, dtype=np.int64)
+    edge_data[ok] = d_s[pos[ok]]
+    matched = int(ok.sum())
+    print(f"edge metadata: matched {matched}/{graph.num_edges} CSR directions")
+    if matched < graph.num_edges:
+        print(
+            f"WARNING: {graph.num_edges - matched} graph edges have "
+            "no metadata row and default to value 0 — they will "
+            "match only pattern edges requiring 0"
+        )
+    return edge_data
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="fuzzy pattern matching (torch)")
     ap.add_argument("-i", "--input", required=True, help="graph DB directory")
     ap.add_argument("-p", "--pattern-dir", required=True)
     ap.add_argument("-o", "--output", required=True, help="result directory")
+    ap.add_argument("-e", "--edge-data", default=None,
+                    help="activate edge-metadata-constrained matching: "
+                         "'db' uses the metadata stored in the graph DB, "
+                         "anything else is an edge metadata file base (src "
+                         "dst data rows). Requires a pattern_edge_data file "
+                         "in the pattern dir. (The reference parses -e but "
+                         "never enforces it — beta.cpp:114-115, :575; "
+                         "enforcement is this framework's opt-in extension.)")
     ap.add_argument("-r", "--ranks", type=int, default=None,
                     help="output ranks (default: graph DB shard count)")
     ap.add_argument("-x", "--batch", type=int, default=1 << 16,
                     help="token-source batch size (TDS)")
     ap.add_argument("--max-iterations", type=int, default=100)
+    ap.add_argument("--lcc-engine", choices=["bucketed", "flat", "sharded"],
+                    default="bucketed")
+    ap.add_argument("--counting", action="store_true",
+                    help="counting-LCC: require per-neighbor-label-class "
+                         "count thresholds from the template "
+                         "(label_propagation_pattern_matching_nonunique_"
+                         "counting_ee.hpp); works with every --lcc-engine")
     ap.add_argument("--no-compact", action="store_true",
                     help="run every LCC superstep on the full graph instead "
                          "of a pruned-subgraph engine after the first "
                          "superstep (results identical)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
+    if args.lcc_engine == "sharded":
+        ap.error("--lcc-engine sharded: the multi-device plane is not ported")
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
 
-    graph, stored_labels, _ = storage.load(args.input)
+    graph, stored_labels, stored_edata = storage.load(args.input)
     print(f"opened graph DB: V={graph.num_vertices} E={graph.num_edges}")
     labels = resolve_labels(graph, None, stored_labels)
     if stored_labels is None:
         print("using degree labels ceil(log2(d+1))")
+
+    edge_data = None
+    if args.edge_data == "db":
+        edge_data = stored_edata
+        if edge_data is None:
+            ap.error(
+                f"-e db: {args.input} has no stored edge metadata "
+                "(run cli.build_edge_metadata first)"
+            )
+    elif args.edge_data:
+        edge_data = _edge_data_from_files(ap, graph, args.edge_data)
 
     num_ranks = args.ranks
     if num_ranks is None:
@@ -76,11 +156,17 @@ def main(argv=None):
         f"pattern [0]: K={pattern.vertex_count} diameter={pattern.diameter} "
         f"constraints={len(constraints)}"
     )
+    if edge_data is not None and pattern.edge_data is None:
+        print(
+            "pattern [0]: no pattern_edge_data file — edge-metadata "
+            "constraints inactive for this pattern"
+        )
     t0 = time.time()
     engine = MatchEngine(
         graph, labels, pattern, constraints, num_ranks=num_ranks,
-        source_batch=args.batch, compact=not args.no_compact,
-        device=args.device,
+        source_batch=args.batch, lcc_engine=args.lcc_engine,
+        counting=args.counting, edge_data=edge_data,
+        compact=not args.no_compact, device=args.device,
     )
     result = engine.run(max_iterations=args.max_iterations)
     print(

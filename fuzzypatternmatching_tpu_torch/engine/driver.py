@@ -3,13 +3,20 @@
 Counterpart of ``fuzzypatternmatching_tpu/engine/driver.py``: LCC call
 (diameter supersteps), forced token passing on iteration 0, per-constraint
 NLCC with source invalidation, interleaved LCC re-runs after source
-deletions, global fixpoint. LCC runs on the bucketed engine
-(``engine/lcc_bucketed.py``) on the given device, with the compact
-continuation: after the global init superstep the remaining supersteps run
-on an engine rebuilt over the pruned subgraph, on the same device. Each
-NLCC constraint runs on the device engine (``engine/nlcc_device.py``) or
-the host engine (``engine/nlcc.py``, the port's copy of the JAX
-package's), placed by ``nlcc_mode``; the placement never changes a result.
+deletions, global fixpoint. LCC runs on the given device, on the bucketed
+engine (``engine/lcc_bucketed.py``) with the compact continuation — after
+the global init superstep the remaining supersteps run on an engine rebuilt
+over the pruned subgraph, on the same device — or on the flat engine
+(``engine/lcc.py``), whose state the driver exchanges as E-sized global
+arrays. Each NLCC constraint runs on the device engine
+(``engine/nlcc_device.py``) or the host engine (``engine/nlcc.py``, the
+port's copy of the JAX package's), placed by ``nlcc_mode``; the placement
+never changes a result.
+
+Counting-LCC (``counting=True``) and edge-metadata matching
+(``edge_data``, active only when the pattern carries ``pattern_edge_data``
+too) run on both LCC engines; with metadata every constraint runs on the
+host NLCC engine, whose walks filter each hop by the edge's metadata.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from ..graph.csr import Graph, from_edges
 from ..pattern.nonlocal_constraint import NonLocalConstraint
 from ..pattern.pattern_graph import PatternGraph
+from .lcc import LccEngine
 from .lcc_bucketed import BucketedLccEngine
 from .nlcc import (
     AliveCsr,
@@ -59,14 +67,12 @@ class MatchEngine:
         *,
         device: torch.device | str = "cuda",
     ):
-        if lcc_engine != "bucketed":
+        if lcc_engine not in ("bucketed", "flat"):
             raise ValueError(
-                f"lcc_engine={lcc_engine!r}: only 'bucketed' is ported"
+                f"lcc_engine={lcc_engine!r}: only 'bucketed' and 'flat' are ported"
             )
         if nlcc_mode not in ("auto", "device", "host"):
             raise ValueError(f"nlcc_mode={nlcc_mode!r}: not auto, device or host")
-        if edge_data is not None:
-            raise ValueError("edge-metadata matching is not ported")
         if not isinstance(graph, Graph):
             raise TypeError("MatchEngine needs a materialized Graph (storage.load)")
         self.device = torch.device(device)
@@ -76,10 +82,32 @@ class MatchEngine:
         self.constraints = constraints
         self.num_ranks = num_ranks
         self.source_batch = source_batch
-        self.lcc = BucketedLccEngine(
-            graph, self.labels, pattern, device=self.device,
-            num_ranks=num_ranks, counting=counting,
-        )
+        self.counting = counting
+        # edge-metadata matching is active iff BOTH the graph's edge data
+        # and the pattern's edge data are present: (vals, allow, code per
+        # CSR edge), a value no pattern edge requires coded M (the all-zero
+        # allow row)
+        self._meta = None
+        if edge_data is not None and pattern.edge_data is not None:
+            vals, allow = pattern.edge_meta_tables()
+            ed = np.asarray(edge_data, dtype=np.int64)
+            pos = np.minimum(np.searchsorted(vals, ed), len(vals) - 1)
+            code = np.where(vals[pos] == ed, pos, len(vals)).astype(np.int64)
+            self._meta = (vals, allow, code)
+        em = None if self._meta is None else (self._meta[1], self._meta[2])
+        if lcc_engine == "bucketed":
+            self.lcc = BucketedLccEngine(
+                graph, self.labels, pattern, device=self.device,
+                num_ranks=num_ranks, edge_meta=em, counting=counting,
+            )
+        else:
+            self.lcc = LccEngine(
+                graph, self.labels, pattern, num_ranks=num_ranks,
+                counting=counting, edge_meta=em, device=self.device,
+            )
+        # the bucketed engine's states hold the alive set in slot space
+        # (``alive_pairs``); the flat engine's are E-sized global arrays
+        self._fast = hasattr(self.lcc, "alive_pairs")
         # NLCC placement: "device" runs every constraint on the device
         # engine, "host" on the host engine, "auto" moves a constraint to
         # the device when its first token expansion has at least
@@ -104,7 +132,7 @@ class MatchEngine:
                 | (pattern.min_optional_edge_count > 0)
             )
         )
-        self._compact_engine = compact
+        self._compact_engine = compact and self._fast
         # (fp, keys, union, u_rows_uniq, alive_sub_eids, sub): the compact
         # closure and its engine, keyed on the exact alive set
         self._sub_cache: tuple | None = None
@@ -196,9 +224,18 @@ class MatchEngine:
             u_row = (union // vv).astype(np.int64)
             u_col = (union % vv).astype(np.int64)
             gsub = from_edges(u_row, u_col, num_vertices=self.graph.num_vertices)
+            sub_meta = None
+            if self._meta is not None:
+                # union is in CSR key order, so from_edges keeps it: sub
+                # edge e is union[e]
+                sub_meta = (
+                    self._meta[1],
+                    self._meta[2][np.searchsorted(self._edge_keys_cached(), union)],
+                )
             sub = BucketedLccEngine(
                 gsub, self.labels, self.pattern, device=self.device,
-                num_ranks=self.num_ranks,
+                num_ranks=self.num_ranks, edge_meta=sub_meta,
+                counting=self.counting,
             )
             # per-slot aliveness = membership in the original set
             pos = np.minimum(np.searchsorted(keys, union), len(keys) - 1)
@@ -249,6 +286,9 @@ class MatchEngine:
         fixed costs (launches and host reads per hop)."""
         if self._dev_nlcc is None or self.nlcc_mode == "host":
             return False
+        if self._meta is not None:
+            # the metadata hop filters run in the host engine only
+            return False
         if self.nlcc_mode == "device":
             return True
         sources = token_sources(c, self.labels, tv, candidates)
@@ -259,6 +299,12 @@ class MatchEngine:
         """One NLCC constraint, on the device or the host engine."""
         g = self.graph
         cand = self._cands[pl]
+        # metadata mode: the code each hop's edge must carry
+        hopc = (
+            np.searchsorted(self._meta[0], self.pattern.hop_edge_values(c.indices))
+            if self._meta is not None
+            else None
+        )
         use_dev = self._nlcc_on_device(acsr, c, tv, cand)
         # driver-level forwarded-set clearing runs before EVERY constraint
         forwarded.reset_for(c, self.labels, tv, g.num_vertices)
@@ -272,18 +318,50 @@ class MatchEngine:
             return run_tds(
                 acsr, self.labels, tv, c, g.num_vertices,
                 source_batch=self.source_batch, num_ranks=self.num_ranks,
-                forwarded=forwarded, candidates=cand,
+                forwarded=forwarded, hopc=hopc, candidates=cand,
             )
         return run_nem(
             acsr, self.labels, tv, c, g.num_vertices,
-            num_ranks=self.num_ranks, forwarded=forwarded, candidates=cand,
+            num_ranks=self.num_ranks, forwarded=forwarded, hopc=hopc,
+            candidates=cand,
         )
+
+    def _alive_csr(self, arow, acol, alive, tv) -> AliveCsr:
+        """The pruned adjacency the NLCC walks expand: from the alive pairs
+        (bucketed engine) or the E-sized alive flags (flat engine), with
+        each edge's metadata code in metadata mode."""
+        g = self.graph
+        if alive is not None:
+            return AliveCsr.build(
+                g, alive, tv != 0,
+                meta=None if self._meta is None else self._meta[2],
+            )
+        pair_meta = None
+        if self._meta is not None:
+            keys = arow.astype(np.uint64) * np.uint64(g.num_vertices) + acol.astype(
+                np.uint64
+            )
+            pair_meta = self._meta[2][np.searchsorted(self._edge_keys_cached(), keys)]
+        return AliveCsr.from_pairs(arow, acol, tv != 0, g.num_vertices, meta=pair_meta)
+
+    def _host_state(self, state):
+        """(tv, arow, acol, alive) on the host: the alive (row, col) pairs
+        in CSR row-major order, and for the flat engine its E-sized alive
+        flags (None for the bucketed engine)."""
+        if self._fast:
+            arow, acol = self.lcc.alive_pairs(state)
+            return self.lcc.tv_host(state).copy(), arow, acol, None
+        tv, alive = self.lcc.state_to_global(state)
+        alive = alive.copy()
+        eids = np.nonzero(alive)[0]
+        return tv.copy(), self.graph.edge_row[eids], self.graph.cols[eids], alive
 
     def run(self, max_iterations: int = 100) -> MatchResult:
         t_start = time.perf_counter()
         result = MatchResult()
         result.pattern_found = [False] * len(self.constraints)
         g = self.graph
+        fast = self._fast
         state = self.lcc.init_state()
         forwarded = ForwardedSets.empty()  # persists across constraints
         global_init = True
@@ -300,10 +378,11 @@ class MatchEngine:
                 not_finished = True  # forced token passing on iteration 0
             if not_finished:
                 not_finished = False
-                # only the (small) alive edge set crosses to the host
-                tv = self.lcc.tv_host(state).copy()
-                arow, acol = self.lcc.alive_pairs(state)
+                # bucketed: only the (small) alive edge set crosses to the
+                # host; flat: the E-sized alive flags as well
+                tv, arow, acol, alive = self._host_state(state)
                 tp_marks: list = []
+                tp_flag = None if fast else np.zeros(g.num_edges, dtype=bool)
                 # the pruned adjacency changes only via LCC; reuse it across
                 # constraints (deactivated vertices are filtered by the
                 # arrival checks)
@@ -311,9 +390,7 @@ class MatchEngine:
                 for pl, c in enumerate(self.constraints):
                     t0 = time.perf_counter()
                     if acsr is None:
-                        acsr = AliveCsr.from_pairs(
-                            arow, acol, tv != 0, g.num_vertices
-                        )
+                        acsr = self._alive_csr(arow, acol, alive, tv)
                     out = self._run_constraint(pl, c, acsr, tv, forwarded)
                     if c.is_tds:
                         subs = result.subgraphs.setdefault(pl, [])
@@ -324,19 +401,21 @@ class MatchEngine:
                     for v, p in out.edge_marks:
                         e = self._edge_index(v, p)
                         if e >= 0:
-                            tp_marks.append(e)
+                            if fast:
+                                tp_marks.append(e)
+                            else:
+                                tp_flag[e] = True
                     deleted = invalidate_sources(tv, c, out)
                     if deleted:
                         not_finished = True
                     live = tv != 0
-                    live_rows = live[arow]
+                    ae_rows = arow[live[arow]]
                     per_rank = {
                         "av": np.bincount(
                             self._owner[live], minlength=self.num_ranks
                         ),
                         "ae": np.bincount(
-                            self._owner[arow[live_rows]],
-                            minlength=self.num_ranks,
+                            self._owner[ae_rows], minlength=self.num_ranks
                         ),
                         "msg": out.msg_per_rank
                         if out.msg_per_rank is not None
@@ -344,27 +423,34 @@ class MatchEngine:
                     }
                     result.rows.append(
                         PhaseRow(
-                            itr, "TP", pl, int(live.sum()),
-                            int(live_rows.sum()), out.messages,
-                            time.perf_counter() - t0, per_rank,
+                            itr, "TP", pl, int(live.sum()), len(ae_rows),
+                            out.messages, time.perf_counter() - t0, per_rank,
                         )
                     )
                     result.traversed_edges += out.messages
                     if deleted and c.interleave_lcc:
-                        state = self.lcc.with_updates(state, tv, tp_marks)
+                        if fast:
+                            state = self.lcc.with_updates(state, tv, tp_marks)
+                        else:
+                            state = self.lcc.state_from_global(tv, alive, tp_flag)
                         # tp success marks are carried into the compact
                         # subgraph's edge ids (tp_mark_eids)
                         state, died = self._lcc_phase(
-                            state, False, itr, result, tp_mark_eids=tp_marks
+                            state, False, itr, result,
+                            tp_mark_eids=tp_marks if fast else None,
                         )
                         if died:
                             not_finished = True
-                        tv = self.lcc.tv_host(state).copy()
-                        arow, acol = self.lcc.alive_pairs(state)
+                        tv, arow, acol, alive = self._host_state(state)
                         tp_marks = []
+                        if not fast:
+                            tp_flag = np.zeros(g.num_edges, dtype=bool)
                         acsr = None  # pruned adjacency changed
-                state = self.lcc.with_updates(state, tv, tp_marks)
-                pending_marks = list(tp_marks)
+                if fast:
+                    state = self.lcc.with_updates(state, tv, tp_marks)
+                    pending_marks = list(tp_marks)
+                else:
+                    state = self.lcc.state_from_global(tv, alive, tp_flag)
             itr += 1
             if not not_finished:
                 break
@@ -382,8 +468,7 @@ class MatchEngine:
                 break
 
         result.iterations = itr
-        tv = self.lcc.tv_host(state)
-        arow, acol = self.lcc.alive_pairs(state)
+        tv, arow, acol, _ = self._host_state(state)
         keep = (tv != 0)[arow]
         result.active_edges = {
             (int(r), int(c)) for r, c in zip(arow[keep], acol[keep])

@@ -1,25 +1,36 @@
 """Bucketed-ELL LCC engine on torch tensors.
 
-Counterpart of ``fuzzypatternmatching_tpu/engine/lcc_bucketed.py`` (default
-mode). The adjacency is laid out in degree buckets: vertices of similar
+Counterpart of ``fuzzypatternmatching_tpu/engine/lcc_bucketed.py``. The
+adjacency is laid out in degree buckets: vertices of similar
 (deduplicated) degree share a dense ``[rows, width]`` neighbour matrix
 padded to a power-of-two width between ``min_width`` and ``max_width``;
 hubs wider than ``max_width`` are split over several rows of the widest
-bucket and their partial results combined by ``_segment_or``. The slot
-layout (bucket order, ``slot_base``, ``rev``, the edge-to-slot map) is the
-JAX engine's, so states convert between the two (``state_from_jax``).
+bucket and their partial results combined per segment. The slot layout
+(bucket order, ``slot_base``, ``rev``, the edge-to-slot map) is the JAX
+engine's, so states convert between the two (``state_from_jax``).
 
 A superstep runs per bucket:
 
 * init (global init step): the neighbour candidates are the neighbours'
   label bitsets, replayed from per-slot label codes; accept test against
   the row's pattern-adjacency mask, row OR, keep mask — plain torch;
-* otherwise: the hand-written kernels of ``ops/lcc_superstep.py``. Once
-  per superstep over every bucket, ``alive_table`` packs the alive flags
-  (words and group summary) and ``rev_alive_lookup`` reads the alive bit
-  of every slot's reverse edge (``rev`` is one flat [S] tensor, each
-  bucket's plane a view of it); then per bucket ``gather_accept_or`` on
-  the tv table, the keep mask and the alive update.
+* otherwise: once per superstep over every bucket, ``alive_table`` packs
+  the alive flags (words and group summary) and ``rev_alive_lookup`` reads
+  the alive bit of every slot's reverse edge (``rev`` is one flat [S]
+  tensor, each bucket's plane a view of it); then per bucket
+  ``gather_accept_or`` on the tv table, the keep mask and the alive update
+  (``ops/lcc_superstep.py``).
+
+Two search modes change the acceptance, as in the JAX engine:
+
+* counting (``counting=True``): candidate i also needs at least
+  ``required[i, j]`` accepted neighbours of label class j (per-slot sender
+  class codes; row sums, per-segment sums for split hubs);
+* edge metadata (``edge_meta``): a slot's metadata code selects a row of
+  the allow table, and tn is accumulated separately per receiver bit from
+  the parents that edge may deliver toward that bit. Its acceptance and
+  per-bit tn are not what ``gather_accept_or`` computes, so after
+  ``rev_alive_lookup`` this mode runs in plain torch.
 
 tv is int32 holding the 16-bit candidate set; alive and the token-passing
 flags are bool over the flat slot space plus one always-dead pad slot.
@@ -45,6 +56,34 @@ from .lazy_state import merged_flag_ids, normalized_edge_ids, normalized_flag_id
 MAX_TEMPLATE_VERTICES = 16  # tv and the kernels' tables hold 16 bits
 
 
+def or_over_bits(tv: torch.Tensor, adj_all: list) -> torch.Tensor:
+    """OR of the pattern adjacency sets ``adj_all[i]`` over each candidate
+    bit i of ``tv``: the mask an incoming message must meet."""
+    m = torch.zeros_like(tv)
+    for i, bits in enumerate(adj_all):
+        m = m | (((tv >> i) & 1) * bits)
+    return m
+
+
+def keep_mask_per_i(tn_list: list, mand: list, opt: list, opt_min: list):
+    """Acceptance of each template vertex i against its own tn
+    (``tn_list[i]``: metadata mode hears per receiver bit, the default mode
+    passes one tn for every bit), packed into a keep mask: the mandatory
+    neighbour classes all heard, and the optional ones heard together with
+    at least ``opt_min[i]`` of them (the fuzzy rule)."""
+    keep = torch.zeros_like(tn_list[0])
+    for i, tn in enumerate(tn_list):
+        ok = (mand[i] & ~tn) == 0
+        if opt_min[i] > 0:
+            t = opt[i] & tn
+            count = torch.zeros_like(t)
+            for bit in range(MAX_TEMPLATE_VERTICES):
+                count = count + ((t >> bit) & 1)
+            ok = ok & (t == opt[i]) & (count >= opt_min[i])
+        keep = keep | (ok.to(torch.int32) << i)
+    return keep
+
+
 @dataclass
 class Bucket:
     rows: np.ndarray  # vertex id per row [n] (repeats for split hubs)
@@ -65,6 +104,11 @@ class _DeviceBucket:
     seg_rows: torch.Tensor  # int64 [n_seg]
     own_rows: torch.Tensor  # output rank of each row, int64 [n]
     own_seg: torch.Tensor  # output rank of each segment, int64 [n_seg]
+    # edge-metadata code of each slot (padding -> the all-zero row M),
+    # uint8 when M + 1 <= 256, else int32 [n, w]
+    meta: torch.Tensor | None = None
+    # counting: label class (1..L) of each slot's sender, 0 = none [n, w]
+    cls: torch.Tensor | None = None
 
 
 @dataclass
@@ -98,12 +142,6 @@ class BucketedLccEngine:
         edge_meta: tuple[np.ndarray, np.ndarray] | None = None,
         counting: bool = False,
     ):
-        if edge_meta is not None:
-            raise ValueError(
-                "edge-metadata matching is not ported to the torch engine"
-            )
-        if counting:
-            raise ValueError("counting mode is not ported to the torch engine")
         if pattern.vertex_count > MAX_TEMPLATE_VERTICES:
             raise ValueError(
                 f"templates of more than {MAX_TEMPLATE_VERTICES} vertices "
@@ -200,6 +238,37 @@ class BucketedLccEngine:
         self.opt = [int(x) for x in pattern.edges_bitset_optional]
         self.opt_min = [int(x) for x in pattern.min_optional_edge_count]
 
+        # --- edge metadata: per-slot codes into the allow table ------------
+        slot_meta = [None] * len(self.buckets)
+        self.meta_allow = None  # [K] int32 [M+1] tables: column i of allow
+        if edge_meta is not None:
+            allow, ecode = edge_meta
+            ecode = np.asarray(ecode, dtype=np.int64)
+            mzero = allow.shape[0] - 1  # the all-zero allow row
+            meta_dtype = np.uint8 if allow.shape[0] <= 256 else np.int32
+            slot_meta = [
+                np.where(
+                    b.edge_ids >= 0, ecode[np.maximum(b.edge_ids, 0)], mzero
+                ).astype(meta_dtype)
+                for b in self.buckets
+            ]
+            allow32 = np.asarray(allow, dtype=np.uint32).astype(np.int32)
+            self.meta_allow = [
+                torch.from_numpy(allow32[:, i].copy()).to(self.device)
+                for i in range(self.k)
+            ]
+        # --- counting: per-slot sender label classes -----------------------
+        self.counting = counting
+        slot_cls = [None] * len(self.buckets)
+        self.required = None
+        if counting:
+            class_labels, self.required = pattern.neighbor_label_counts()
+            lab = np.asarray(labels)
+            class_pad = np.zeros(v + 1, dtype=np.uint8)
+            for j, cl in enumerate(class_labels):
+                class_pad[:v][lab == cl] = j + 1
+            slot_cls = [class_pad[b.adj] for b in self.buckets]
+
         # --- device planes -------------------------------------------------
         dev = self.device
         lab_tv = pattern.label_match_bitset(np.asarray(labels)).astype(np.int32)
@@ -214,7 +283,7 @@ class BucketedLccEngine:
             )
         ).to(dev)
         self._dev = []
-        for b in self.buckets:
+        for b, meta, cls in zip(self.buckets, slot_meta, slot_cls):
             rows = torch.from_numpy(b.rows.astype(np.int64)).to(dev)
             seg_rows = torch.from_numpy(b.seg_rows.astype(np.int64)).to(dev)
             self._dev.append(
@@ -226,27 +295,44 @@ class BucketedLccEngine:
                     seg_rows=seg_rows,
                     own_rows=rows % num_ranks,
                     own_seg=seg_rows % num_ranks,
+                    meta=None if meta is None else torch.from_numpy(meta).to(dev),
+                    cls=None if cls is None else torch.from_numpy(cls).to(dev),
                 )
             )
 
     # ------------------------------------------------------------------
 
     def _or_over_bits(self, tv: torch.Tensor) -> torch.Tensor:
-        m = torch.zeros_like(tv)
-        for i in range(self.k):
-            m = m | (((tv >> i) & 1) * self.adj_all[i])
-        return m
+        return or_over_bits(tv, self.adj_all)
 
     def _keep_mask(self, tn: torch.Tensor) -> torch.Tensor:
-        keep = torch.zeros_like(tn)
+        return self._keep_mask_per_i([tn] * self.k)
+
+    def _keep_mask_per_i(self, tn_list: list) -> torch.Tensor:
+        return keep_mask_per_i(tn_list, self.mand, self.opt, self.opt_min)
+
+    def _count_mask(self, d: _DeviceBucket, acc: list, n_seg: int):
+        """Counting mode: bit i set where candidate i heard at least
+        ``required[i, j]`` accepted senders of each label class j.
+        ``acc[i]`` is the bool [n, w] plane of slots accepted toward i;
+        counts are row sums, summed per segment for split hubs."""
+        split = n_seg != d.adj.shape[0]
+        keep = torch.zeros(n_seg, dtype=torch.int32, device=d.adj.device)
+        of_class = {
+            j: d.cls == j + 1 for j in np.nonzero(self.required.any(axis=0))[0]
+        }
         for i in range(self.k):
-            ok = (self.mand[i] & ~tn) == 0
-            if self.opt_min[i] > 0:
-                t = self.opt[i] & tn
-                count = torch.zeros_like(t)
-                for bit in range(MAX_TEMPLATE_VERTICES):
-                    count = count + ((t >> bit) & 1)
-                ok = ok & (t == self.opt[i]) & (count >= self.opt_min[i])
+            ok = torch.ones(n_seg, dtype=torch.bool, device=d.adj.device)
+            for j in range(self.required.shape[1]):
+                req = int(self.required[i, j])
+                if req <= 0:
+                    continue
+                cnt = (acc[i] & of_class[j]).sum(dim=1)
+                if split:
+                    cnt = torch.zeros(
+                        n_seg, dtype=cnt.dtype, device=cnt.device
+                    ).index_add_(0, d.seg_id, cnt)
+                ok = ok & (cnt >= req)
             keep = keep | (ok.to(torch.int32) << i)
         return keep
 
@@ -272,6 +358,7 @@ class BucketedLccEngine:
         died] as an int64 device tensor."""
         dev = self.device
         r = self.num_ranks
+        meta = self.meta_allow is not None
         av = torch.zeros(r, dtype=torch.int64, device=dev)
         ae = torch.zeros(r, dtype=torch.int64, device=dev)
         msg = torch.zeros(r, dtype=torch.int64, device=dev)
@@ -285,25 +372,69 @@ class BucketedLccEngine:
         for b, d in zip(self.buckets, self._dev):
             n, w = b.adj.shape
             n_seg = len(b.seg_rows)
+            split = n_seg != n
             lo, hi = b.slot_base, b.slot_base + n * w
             tv_seg = tv[d.seg_rows]
-            adj_mask_rows = self._or_over_bits(tv_seg)[d.seg_id]
             if init:
+                # tv == label_tv: the neighbour's candidates from its label
                 p = self._code_tv[d.code.to(torch.int32)]
                 send_ok = p != 0
-                accept = (p & adj_mask_rows[:, None]) != 0
-                tn_rows = row_or(torch.where(accept, p, 0))
                 sendok_rows = send_ok.sum(dim=1, dtype=torch.int32)
-            else:
-                alive_rev = alive_rev_flat[lo:hi].view(n, w)
-                tn_rows, accept, sendok_rows = gather_accept_or(
-                    d.adj, alive_rev, adj_mask_rows, tv_table
-                )
-            tn = self._segment_or(tn_rows, d.seg_id, n_seg) if n_seg != n else tn_rows
+            elif meta:
+                p = tv_table[d.adj]
+                send_ok = (p != 0) & alive_rev_flat[lo:hi].view(n, w)
+                p = torch.where(send_ok, p, 0)
+                sendok_rows = send_ok.sum(dim=1, dtype=torch.int32)
 
-            new_tv_seg = tv_seg & self._keep_mask(tn)
-            if init:
+            acc = None
+            if meta:
+                # per-slot allowed parents toward each receiver bit i (the
+                # slot's metadata code selects the allow row) and a separate
+                # tn per bit
+                code = d.meta.to(torch.int32)
+                mask = torch.zeros_like(p)
+                tn_list = []
+                acc = []
+                for i in range(self.k):
+                    allow_i = self.meta_allow[i][code]
+                    has_i = (((tv_seg >> i) & 1) != 0)[d.seg_id]
+                    mask = mask | torch.where(has_i[:, None], allow_i, 0)
+                    p_i = p & allow_i
+                    tn_i = row_or(p_i)
+                    tn_list.append(
+                        self._segment_or(tn_i, d.seg_id, n_seg) if split else tn_i
+                    )
+                    if self.counting:
+                        acc.append(p_i != 0)
+                accept = (p & mask) != 0
+                in_map = accept.any(dim=1)
+                if split:
+                    in_map = torch.zeros(
+                        n_seg, dtype=torch.int32, device=dev
+                    ).index_add_(0, d.seg_id, in_map.to(torch.int32)) > 0
+                new_tv_seg = tv_seg & self._keep_mask_per_i(tn_list)
+            else:
+                adj_mask_rows = self._or_over_bits(tv_seg)[d.seg_id]
+                if init:
+                    accept = (p & adj_mask_rows[:, None]) != 0
+                    pa = torch.where(accept, p, 0)
+                    tn_rows = row_or(pa)
+                else:
+                    alive_rev = alive_rev_flat[lo:hi].view(n, w)
+                    tn_rows, accept, sendok_rows = gather_accept_or(
+                        d.adj, alive_rev, adj_mask_rows, tv_table
+                    )
+                    if self.counting:
+                        pa = torch.where(accept, tv_table[d.adj], 0)
+                tn = self._segment_or(tn_rows, d.seg_id, n_seg) if split else tn_rows
                 in_map = tn != 0
+                new_tv_seg = tv_seg & self._keep_mask(tn)
+                if self.counting:
+                    acc = [(pa & self.adj_all[i]) != 0 for i in range(self.k)]
+            if self.counting:
+                new_tv_seg = new_tv_seg & self._count_mask(d, acc, n_seg)
+
+            if init:
                 new_tv_seg = torch.where(in_map, new_tv_seg, 0)
                 died_b = in_map & (new_tv_seg == 0)
             else:

@@ -16,8 +16,7 @@ bounds peak frontier memory without changing results (TDS has no dedup, so
 batches are independent; nem dedup is per-source, hence also
 batch-independent).
 
-The port's own copy of ``fuzzypatternmatching_tpu/engine/nlcc.py`` (the
-edge-metadata mode's per-hop codes are left out with that mode); on the
+The port's own copy of ``fuzzypatternmatching_tpu/engine/nlcc.py``; on the
 same inputs it gives the same messages, winners and subgraphs.
 """
 
@@ -27,21 +26,25 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..graph.csr import Graph
 from ..pattern.nonlocal_constraint import NonLocalConstraint
 
 
 @dataclass
 class AliveCsr:
     """Pruned adjacency: only edges whose receiver-side slot is alive and
-    whose row vertex is still active."""
+    whose row vertex is still active. ``meta`` (optional, aligned with
+    ``col``) carries per-edge metadata codes for the edge-metadata-
+    constrained matching mode."""
 
     ptr: np.ndarray  # int64 [V+1]
     col: np.ndarray  # int64 [A]
+    meta: np.ndarray | None = None  # int64 [A] metadata codes | None
 
     @classmethod
     def from_pairs(
         cls, arow: np.ndarray, acol: np.ndarray, live: np.ndarray,
-        num_vertices: int,
+        num_vertices: int, meta: np.ndarray | None = None,
     ) -> "AliveCsr":
         """Build from (row, col) alive-slot pairs (already row-sorted)."""
         mask = live[arow]
@@ -49,7 +52,26 @@ class AliveCsr:
         counts = np.bincount(r, minlength=num_vertices)
         ptr = np.zeros(num_vertices + 1, dtype=np.int64)
         np.cumsum(counts, out=ptr[1:])
-        return cls(ptr=ptr, col=c.astype(np.int64))
+        return cls(
+            ptr=ptr, col=c.astype(np.int64),
+            meta=None if meta is None else meta[mask],
+        )
+
+    @classmethod
+    def build(
+        cls, graph: Graph, edge_alive: np.ndarray, live: np.ndarray,
+        meta: np.ndarray | None = None,
+    ) -> "AliveCsr":
+        mask = edge_alive & live[graph.edge_row]
+        arow = graph.edge_row[mask]
+        acol = graph.cols[mask]
+        counts = np.bincount(arow, minlength=graph.num_vertices)
+        ptr = np.zeros(graph.num_vertices + 1, dtype=np.int64)
+        np.cumsum(counts, out=ptr[1:])
+        return cls(
+            ptr=ptr, col=acol.astype(np.int64),
+            meta=None if meta is None else meta[mask],
+        )
 
     # accumulated (post-filter) frontiers beyond this size abort with
     # guidance rather than exhausting host memory; RAW expansion is never
@@ -60,18 +82,19 @@ class AliveCsr:
 
     def expand(
         self, vs: np.ndarray
-    ) -> tuple[np.ndarray, np.ndarray]:
-        """All alive neighbors of each vs[i]: returns (token_index, neighbor)
-        with one row per (i, nbr) pair."""
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """All alive neighbors of each vs[i]: returns (token_index, neighbor,
+        edge_position) with one row per (i, nbr) pair; edge_position indexes
+        ``col``/``meta``."""
         cnt = self.ptr[vs + 1] - self.ptr[vs]
         total = int(cnt.sum())
         rep = np.repeat(np.arange(len(vs), dtype=np.int64), cnt)
         offs = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(cnt) - cnt, cnt)
         pos = self.ptr[vs][rep] + offs
-        return rep, self.col[pos]
+        return rep, self.col[pos], pos
 
     def expand_slices(self, vs: np.ndarray, chunk: int | None = None):
-        """Yield (lo, hi, rep, nbr) covering ``vs`` in slices whose raw
+        """Yield (lo, hi, rep, nbr, pos) covering ``vs`` in slices whose raw
         expansion stays within ~``chunk`` entries (single rows may exceed
         it; a row is never split)."""
         if chunk is None:
@@ -83,8 +106,8 @@ class AliveCsr:
             base = cum[lo - 1] if lo else 0
             hi = int(np.searchsorted(cum, base + chunk, side="left")) + 1
             hi = min(max(hi, lo + 1), len(vs))
-            rep, nbr = self.expand(vs[lo:hi])
-            yield lo, hi, rep, nbr
+            rep, nbr, pos = self.expand(vs[lo:hi])
+            yield lo, hi, rep, nbr, pos
             lo = hi
 
 
@@ -185,23 +208,28 @@ def _expand_nem_hop(
     h_next: int,
     num_ranks: int,
     drop_parent_return: bool,
+    hopc: np.ndarray | None = None,
 ):
     """One hop of token fan-out in bounded slices: every arrival is counted
     (message accounting lives here), then only tokens passing the
-    hop-``h_next`` label/bit arrival check are kept. The raw expansion is
-    never materialized at once (per-hop chunking)."""
+    hop-``h_next`` label/bit arrival check — and, in metadata mode, whose
+    traversed edge carries the hop's required metadata code (``hopc``) —
+    are kept. The raw expansion is never materialized at once (per-hop
+    chunking; the MemoryError abort of round 1 is gone)."""
     messages = 0
     msg_r = np.zeros(num_ranks, dtype=np.int64)
     cur_p, src_p, par_p = [], [], []
     kept = 0
-    for lo, hi, rep, nbr in acsr.expand_slices(v_sel):
+    for lo, hi, rep, nbr, pos in acsr.expand_slices(v_sel):
         if drop_parent_return:
             keep = nbr != p_sel[lo:hi][rep]
-            nbr, rep = nbr[keep], rep[keep]
+            nbr, rep, pos = nbr[keep], rep[keep], pos[keep]
         messages += len(nbr)
         if len(nbr):
             msg_r += np.bincount(nbr % num_ranks, minlength=num_ranks)
         ok = _arrival_ok(nbr, labels, tv, c, h_next)
+        if hopc is not None:
+            ok &= acsr.meta[pos] == hopc[h_next - 1]
         kept += int(ok.sum())
         if kept > AliveCsr.MAX_FRONTIER:
             raise MemoryError(
@@ -228,12 +256,14 @@ def run_nem(
     batch_size: int = 1 << 22,
     num_ranks: int = 1,
     forwarded: ForwardedSets | None = None,
+    hopc: np.ndarray | None = None,
     candidates: np.ndarray | None = None,
 ) -> NlccOutcome:
     """nem-style walk constraint: one pass of
     token_passing_pattern_matching (nem_1.hpp:913-939). ``forwarded`` is the
     persistent per-(vertex, source) dedup/aggregation set; pass the same
-    object across constraints after calling ``reset_for``."""
+    object across constraints after calling ``reset_for``. ``hopc``
+    (metadata mode) gives the per-hop required edge-metadata code."""
     if forwarded is None:
         forwarded = ForwardedSets.empty()
     sources = token_sources(c, labels, tv, candidates)
@@ -259,6 +289,7 @@ def run_nem(
             continue
         cur, src, parent, m, mr = _expand_nem_hop(
             acsr, batch, batch, batch, labels, tv, c, 1, num_ranks, False,
+            hopc=hopc,
         )
         messages += m
         msg_r += mr
@@ -301,7 +332,7 @@ def run_nem(
             v_sel, s_sel, p_sel = cur_ok[sel], src_ok[sel], p_ok[sel]
             cur, src, parent, m, mr = _expand_nem_hop(
                 acsr, v_sel, s_sel, p_sel, labels, tv, c, h + 1, num_ranks,
-                True,
+                True, hopc=hopc,
             )
             messages += m
             msg_r += mr
@@ -338,10 +369,12 @@ def run_tds(
     collect_subgraphs: bool = True,
     num_ranks: int = 1,
     forwarded: ForwardedSets | None = None,
+    hopc: np.ndarray | None = None,
     candidates: np.ndarray | None = None,
 ) -> NlccOutcome:
     """TDS enumeration walk with full history
-    (tds_batch_1.hpp:560-930, 1149-1303)."""
+    (tds_batch_1.hpp:560-930, 1149-1303). ``hopc`` (metadata mode) gives
+    the per-hop required edge-metadata code."""
     sources = token_sources(c, labels, tv, candidates)
     validated = np.zeros(len(sources), dtype=bool)
     src_pos = {int(s): i for i, s in enumerate(sources)}
@@ -361,7 +394,7 @@ def run_tds(
         nonlocal messages, msg_r
         cur_p, tgt_p, vis_p = [], [], []
         kept = 0
-        for lo, hi, rep, nbr in acsr.expand_slices(cur):
+        for lo, hi, rep, nbr, pos in acsr.expand_slices(cur):
             tgt_r, vis_r = tgt[lo:hi][rep], visited[lo:hi][rep]
             if h == maxi:
                 # penultimate hop (tds_batch_1.hpp:806-846)
@@ -379,11 +412,13 @@ def run_tds(
                     keep &= vis_r[:, k2] == nbr
                 else:
                     keep &= False
-            nbr, tgt_r, vis_r = nbr[keep], tgt_r[keep], vis_r[keep]
+            nbr, tgt_r, vis_r, pos = nbr[keep], tgt_r[keep], vis_r[keep], pos[keep]
             messages += len(nbr)
             if len(nbr):
                 msg_r += np.bincount(nbr % num_ranks, minlength=num_ranks)
             ok = _arrival_ok(nbr, labels, tv, c, h + 1)
+            if hopc is not None:
+                ok &= acsr.meta[pos] == hopc[h]
             kept += int(ok.sum())
             if kept > AliveCsr.MAX_FRONTIER:
                 raise MemoryError(
@@ -411,11 +446,13 @@ def run_tds(
         # initial fan-out (position-0 send) — counted and arrival-filtered
         # for hop 1, like every later hop
         cur_p, tgt_p, vis_p = [], [], []
-        for slo, shi, rep, nbr in acsr.expand_slices(batch):
+        for slo, shi, rep, nbr, pos in acsr.expand_slices(batch):
             messages += len(nbr)
             if len(nbr):
                 msg_r += np.bincount(nbr % num_ranks, minlength=num_ranks)
             ok = _arrival_ok(nbr, labels, tv, c, 1)
+            if hopc is not None:
+                ok &= acsr.meta[pos] == hopc[0]
             cur_p.append(nbr[ok])
             tgt_p.append(btgt[slo:shi][rep][ok])
             vis_p.append(batch[slo:shi][rep][ok][:, None])

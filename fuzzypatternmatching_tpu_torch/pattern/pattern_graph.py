@@ -1,6 +1,5 @@
 """Pattern template graph — parses the reference's pattern directory format.
-The port's own copy of ``fuzzypatternmatching_tpu/pattern/pattern_graph.py``
-(the counting and edge-metadata tables are left out with those modes).
+The port's own copy of ``fuzzypatternmatching_tpu/pattern/pattern_graph.py``.
 
 File formats (reference: include/havoqgt/graph.hpp:195-260 and
 include/havoqgt/approximate_pattern_matching/pattern_graph.hpp:129-161,
@@ -52,8 +51,10 @@ class PatternGraph:
     # per directed pattern edge (aligned with ``cols``): the metadata value a
     # data edge must carry to map onto this pattern edge. Parsed from
     # ``pattern_edge_data`` (graph.hpp:209-222 reads ``src dst edge_id w``
-    # rows); None when the file is absent. Only the edge-metadata matching
-    # mode enforces it, and the port does not run that mode yet.
+    # rows); None when the file is absent. The reference stores the values
+    # but its shipped drivers never enforce them (beta.cpp:575 passes
+    # edge_metadata commented out); enforcement here is the opt-in
+    # edge-metadata-constrained matching mode.
     edge_data: np.ndarray = field(default=None)  # int64 [edge_count] | None
 
     def __post_init__(self):
@@ -70,6 +71,67 @@ class PatternGraph:
             self.edges_bitset_all = self.edges_bitset | self.edges_bitset_optional
         if self.min_optional_edge_count is None:
             self.min_optional_edge_count = np.full(k, -1, dtype=np.int64)
+
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.cols[self.row_ptr[v] : self.row_ptr[v + 1]]
+
+    def neighbor_label_counts(self) -> tuple[np.ndarray, np.ndarray]:
+        """The counting-LCC requirement table — the dense form of the
+        reference's ``vertex_neighbor_data_count_map`` (graph.hpp:360-380,
+        printed by label_propagation_pattern_matching_nonunique_counting_ee
+        .hpp:889-893): how many template neighbors of each label class every
+        template vertex has.
+
+        Returns (class_labels [L] uint64, required [K, L] int64): template
+        vertex i must hear from at least ``required[i, j]`` DISTINCT
+        graph neighbors of label ``class_labels[j]`` that are valid parents
+        for i ("I need three gov and two net", counting_ee.hpp:784-790)."""
+        class_labels = np.unique(self.vertex_data)
+        required = np.zeros(
+            (self.vertex_count, len(class_labels)), dtype=np.int64
+        )
+        for i in range(self.vertex_count):
+            for u in self.neighbors(i):
+                j = int(np.searchsorted(class_labels, self.vertex_data[u]))
+                required[i, j] += 1
+        return class_labels, required
+
+    def edge_meta_tables(self) -> tuple[np.ndarray, np.ndarray]:
+        """Edge-metadata acceptance tables for the constrained-matching mode.
+
+        Returns ``(vals [M] int64, allow [M+1, K] uint32)``: ``vals`` are the
+        distinct metadata values the pattern's edges require (sorted);
+        ``allow[c][i]`` is the bitmask of template vertices p adjacent to i
+        via a pattern edge requiring ``vals[c]`` — a data edge carrying
+        metadata m can deliver a parent-p message toward receiver bit i only
+        when ``(1 << p) & allow[code(m)][i]`` is set. Row M (metadata values
+        no pattern edge requires) is all-zero."""
+        if self.edge_data is None:
+            raise ValueError("pattern has no edge metadata (no _edge_data file)")
+        vals = np.unique(self.edge_data)
+        allow = np.zeros((len(vals) + 1, self.vertex_count), dtype=np.uint32)
+        for i in range(self.vertex_count):
+            for e in range(self.row_ptr[i], self.row_ptr[i + 1]):
+                c = int(np.searchsorted(vals, self.edge_data[e]))
+                allow[c, i] |= np.uint32(1 << int(self.cols[e]))
+        return vals, allow
+
+    def hop_edge_values(self, indices: np.ndarray) -> np.ndarray:
+        """Required metadata per walk hop: entry h is the value of the
+        pattern edge (indices[h], indices[h+1]) — the edge a token traverses
+        between walk positions h and h+1. Raises if a hop is not a pattern
+        edge (a malformed constraint)."""
+        out = np.zeros(len(indices) - 1, dtype=np.int64)
+        for h in range(len(indices) - 1):
+            p, q = int(indices[h]), int(indices[h + 1])
+            row = slice(self.row_ptr[p], self.row_ptr[p + 1])
+            hit = np.nonzero(self.cols[row] == q)[0]
+            if len(hit) == 0:
+                raise ValueError(
+                    f"constraint hop ({p},{q}) is not a pattern edge"
+                )
+            out[h] = self.edge_data[self.row_ptr[p] + hit[0]]
+        return out
 
     def label_match_bitset(self, labels: np.ndarray) -> np.ndarray:
         """uint16 candidate bitset per graph vertex: bit i set iff

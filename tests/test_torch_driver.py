@@ -148,16 +148,62 @@ def test_default_device_is_the_card(golden_meta):
         MatchEngine(g, labels, pattern, constraints)
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        {"nlcc_mode": "mesh"},
-        {"lcc_engine": "flat"},
-        {"counting": True},
-        {"edge_data": np.zeros(1, dtype=np.int64)},
-    ],
-)
+@pytest.mark.parametrize("kw", [{"nlcc_mode": "mesh"}, {"lcc_engine": "sharded"}])
 def test_unported_options_raise(golden_meta, kw):
     g, labels, pattern, constraints = _config(golden_meta, "tree_s11")
     with pytest.raises(ValueError):
         MatchEngine(g, labels, pattern, constraints, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("engine", ["bucketed", "flat"])
+def test_edge_data_without_pattern_edge_data_runs_plain(golden_meta, engine):
+    """Edge data on the graph but no pattern_edge_data in the corpus: the
+    metadata mode stays off and the plain search runs (cycle_s13:
+    254/5500/109), equal to the JAX driver's row for row."""
+    g, labels, pattern, constraints = _config(golden_meta, "cycle_s13")
+    assert pattern.edge_data is None
+    nr = golden_meta["num_ranks"]
+    ed = np.zeros(g.num_edges, dtype=np.int64)
+    eng = MatchEngine(
+        g, labels, pattern, constraints, num_ranks=nr, lcc_engine=engine,
+        edge_data=ed, device="cpu",
+    )
+    assert eng._meta is None
+    rt = eng.run()
+    assert len(rt.active_vertices) == 254 and len(rt.active_edges) == 5500
+    assert sum(len(v) for v in rt.subgraphs.values()) == 109
+    gj, labels_j, pattern_j, constraints_j = _config(
+        golden_meta, "cycle_s13", jax_build_config
+    )
+    rj = JaxMatchEngine(
+        gj, labels_j, pattern_j, constraints_j, num_ranks=nr, edge_data=ed
+    ).run()
+    assert _rows(rt) == _rows(rj)
+    assert rt.iterations == rj.iterations
+    assert rt.traversed_edges == rj.traversed_edges
+    assert rt.pattern_found == rj.pattern_found
+    assert rt.active_vertices == rj.active_vertices
+    assert rt.active_edges == rj.active_edges
+    assert rt.subgraphs == rj.subgraphs
+
+
+@pytest.mark.parametrize("config", ["tree_s13", "cycle_s13"])
+def test_flat_engine_result_tree_matches_golden(golden_meta, config, tmp_path):
+    cfg = golden_meta["configs"][config]
+    nr = golden_meta["num_ranks"]
+    g, labels, pattern, constraints = _config(golden_meta, config)
+    eng = MatchEngine(
+        g, labels, pattern, constraints, num_ranks=nr, lcc_engine="flat",
+        device="cpu",
+    )
+    assert not eng._compact_engine
+    r = eng.run()
+    assert r.iterations == cfg["iterations"]
+    assert len(r.active_vertices) == cfg["active_vertices"]
+    assert len(r.active_edges) == cfg["active_edges"]
+    out = str(tmp_path / "out")
+    write_results(
+        out, 0, r, labels, nr,
+        pattern.edge_count, pattern.vertex_count, len(constraints),
+    )
+    assert _tree_files(out) == _tree_files(os.path.join(GOLDEN_BASE, config))

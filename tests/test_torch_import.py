@@ -43,12 +43,14 @@ def test_every_port_module_is_listed():
         "fuzzypatternmatching_tpu_torch.ops.nlcc_frontier",
         "fuzzypatternmatching_tpu_torch.engine.nlcc_device",
         "fuzzypatternmatching_tpu_torch.engine.lcc_bucketed",
+        "fuzzypatternmatching_tpu_torch.engine.lcc",
         "fuzzypatternmatching_tpu_torch.engine.driver",
         "fuzzypatternmatching_tpu_torch.engine.nlcc",
         "fuzzypatternmatching_tpu_torch.engine.lazy_state",
         "fuzzypatternmatching_tpu_torch.engine.result",
         "fuzzypatternmatching_tpu_torch.cli.run_pattern_matching",
         "fuzzypatternmatching_tpu_torch.generators.rmat",
+        "fuzzypatternmatching_tpu_torch.generators.edge_list",
         "fuzzypatternmatching_tpu_torch.graph.csr",
         "fuzzypatternmatching_tpu_torch.graph.storage",
         "fuzzypatternmatching_tpu_torch.io.labels",

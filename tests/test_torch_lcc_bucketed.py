@@ -5,8 +5,11 @@ died flag, same tv and alive sets — all integers, compared exactly. Each
 engine gets its own package's Graph and PatternGraph, built from the same
 numpy edges and pattern files."""
 
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 from fuzzypatternmatching_tpu.engine.lcc_bucketed import (
     BucketedLccEngine as JaxEngine,
@@ -211,13 +214,18 @@ def test_fuzzy_optional_edges_match_jax(graph, tmp_path):
 
 
 def test_unported_modes_raise(graph, tree):
+    """Counting and edge metadata are ported: both modes build. What the
+    engine still refuses is a template of more than 16 vertices (tv holds
+    16 bits)."""
     _, labels, gt = graph
     pattern = tree[1]
-    with pytest.raises(ValueError):
-        BucketedLccEngine(gt, labels, pattern, device="cpu", counting=True)
     allow = np.zeros((2, pattern.vertex_count), dtype=np.uint32)
+    eng = BucketedLccEngine(
+        gt, labels, pattern, device="cpu", counting=True,
+        edge_meta=(allow, np.zeros(gt.num_edges, dtype=np.int64)),
+    )
+    assert eng.counting and eng.meta_allow is not None
+    assert all(d.meta.dtype == torch.uint8 and d.cls is not None for d in eng._dev)
+    big = dataclasses.replace(pattern, vertex_count=17)
     with pytest.raises(ValueError):
-        BucketedLccEngine(
-            gt, labels, pattern, device="cpu",
-            edge_meta=(allow, np.zeros(gt.num_edges, dtype=np.int64)),
-        )
+        BucketedLccEngine(gt, labels, big, device="cpu")

@@ -699,3 +699,63 @@ def test_forward_winners_across_hops_on_cuda(cuda_device, slots):
     want = nf.forward_winners_reference(keys2.cpu(), parents2.cpu(), seen.cpu())
     assert torch.equal(got.cpu(), want)
     assert 0 < int(want.sum()) < 150000
+
+
+def _mode_engines(device, kind, **kw):
+    """A port LCC engine over R-MAT s10 (the golden recipe, split hubs for
+    the bucketed one) and the tree corpus, with random symmetric edge
+    metadata over {55, 56} (56 is no pattern edge's value)."""
+    import tempfile
+
+    from fuzzypatternmatching_tpu_torch import golden
+    from fuzzypatternmatching_tpu_torch.engine.lcc import LccEngine
+    from fuzzypatternmatching_tpu_torch.engine.lcc_bucketed import BucketedLccEngine
+    from fuzzypatternmatching_tpu_torch.pattern.builtin import load_tree_pattern
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pattern, _ = load_tree_pattern(tmp)
+        g, labels, _, _ = golden.build_config(10, tmp + "/0/pattern")
+    rng = np.random.RandomState(7)
+    vals = rng.choice([55, 56], p=[0.9, 0.1], size=g.num_edges)
+    ed = np.where(g.edge_row < g.cols, vals, vals[np.maximum(g.rev_edge, 0)])
+    vv, allow = pattern.edge_meta_tables()
+    if kw.pop("meta"):
+        kw["edge_meta"] = (allow, np.where(ed == 55, 0, len(vv)).astype(np.int64))
+    if kind == "bucketed":
+        return BucketedLccEngine(g, labels, pattern, device=device, num_ranks=4,
+                                 max_width=16, **kw)
+    return LccEngine(g, labels, pattern, num_ranks=4, device=device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bucketed", "flat"])
+@pytest.mark.parametrize(
+    "mode", [{"counting": True, "meta": False}, {"counting": False, "meta": True},
+             {"counting": True, "meta": True}], ids=["counting", "meta", "both"],
+)
+def test_mode_supersteps_on_cuda_equal_cpu(cuda_device, kind, mode):
+    """Counting and metadata supersteps on the card (the kernels) against
+    the same calls on the CPU (their twins): the init superstep, then the
+    continuation from that state with token-passing marks, equal rows,
+    died flags, tv and alive."""
+    engines = [_mode_engines(d, kind, **mode) for d in (cuda_device, torch.device("cpu"))]
+    ops.reset_launches()
+    outs = []
+    for eng in engines:
+        st, rows, died = eng.lcc_call(eng.init_state(), True, n_steps=1)
+        tv, alive = eng.state_to_global(st)
+        flag = np.zeros_like(alive)
+        flag[np.nonzero(alive)[0][::5]] = True
+        st2, rows2, died2 = eng.lcc_call(eng.state_from_global(tv, alive, flag), False)
+        outs.append((rows, died, tv, alive, rows2, died2, *eng.state_to_global(st2)))
+    assert ops.launches["rev_alive_lookup"] > 0
+    (r_c, d_c, tv_c, al_c, r2_c, d2_c, tv2_c, al2_c), cpu = outs
+    r_p, d_p, tv_p, al_p, r2_p, d2_p, tv2_p, al2_p = cpu
+    for a, b in ((r_c, r_p), (r2_c, r2_p)):
+        assert [x[:3] for x in a] == [x[:3] for x in b]
+        for x, y in zip(a, b):
+            for key in ("av", "ae", "msg"):
+                assert np.array_equal(x[3][key], y[3][key])
+    assert d_c == d_p and d2_c == d2_p
+    for x, y in ((tv_c, tv_p), (al_c, al_p), (tv2_c, tv2_p), (al2_c, al2_p)):
+        assert np.array_equal(x, y)

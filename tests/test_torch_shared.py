@@ -336,3 +336,120 @@ def test_match_engine_on_jax_graph_is_refused(golden_meta):
     with pytest.raises(TypeError):
         MatchEngine(gj, labels, p, cs, device="cpu")
     assert JaxMatchEngine is not MatchEngine
+
+
+def _with_edge_data(p, pj, seed):
+    """Give both patterns the same per-edge metadata when their corpus has
+    none (values from {7, 9, 11}, symmetric per undirected edge)."""
+    if pj.edge_data is None:
+        rng = np.random.RandomState(seed)
+        rows = np.repeat(np.arange(pj.vertex_count), np.diff(pj.row_ptr))
+        val = {}
+        for a, b in zip(rows.tolist(), pj.cols.tolist()):
+            val.setdefault((min(a, b), max(a, b)), int(rng.choice([7, 9, 11])))
+        pj.edge_data = np.array(
+            [val[(min(a, b), max(a, b))] for a, b in zip(rows.tolist(), pj.cols.tolist())],
+            dtype=np.int64,
+        )
+        p.edge_data = pj.edge_data.copy()
+
+
+@pytest.mark.parametrize("corpus", ["tree", "cycle", "fuzzy"])
+def test_pattern_tables_equal_original(corpus, tmp_path):
+    """neighbor_label_counts, edge_meta_tables and hop_edge_values (along
+    every constraint's walk) of the port's PatternGraph against the
+    original's."""
+    if corpus == "tree":
+        p, cs = builtin.load_tree_pattern(str(tmp_path / "port"))
+        pj, _ = jax_builtin.load_tree_pattern(str(tmp_path / "jax"))
+    else:
+        if corpus == "fuzzy":
+            from test_fuzzy import write_fuzzy_pattern
+
+            write_fuzzy_pattern(tmp_path, require_optional=True)
+            prefix = str(tmp_path / "pattern")
+        else:
+            prefix = CORPORA[corpus]
+        p, pj = pattern_graph.load_pattern_graph(prefix), jax_pg.load_pattern_graph(prefix)
+        cs = nonlocal_constraint.load_nonlocal_constraints(prefix, p.vertex_data)
+    _with_edge_data(p, pj, len(corpus))
+    for got, want in zip(p.neighbor_label_counts(), pj.neighbor_label_counts()):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    for got, want in zip(p.edge_meta_tables(), pj.edge_meta_tables()):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    walks = [c.indices for c in cs] or [np.array([0, 1, 0])]
+    for idx in walks:
+        assert np.array_equal(p.hop_edge_values(idx), pj.hop_edge_values(idx))
+    with pytest.raises(ValueError):
+        p.hop_edge_values(np.array([0, 0]))
+    p.edge_data = None
+    with pytest.raises(ValueError):
+        p.edge_meta_tables()
+
+
+@pytest.mark.parametrize("name", ["tree_s13", "cycle_s13"])
+def test_nlcc_walks_with_hop_filters_equal_original(golden_meta, name):
+    """AliveCsr.build with per-edge metadata codes over the state after the
+    first LCC call, then every constraint with its per-hop codes (hopc):
+    run_nem/run_tds of the copy against the original's."""
+    (g, labels, p, cs), (gj, _, _, cjs) = _configs(golden_meta, name)
+    nr = golden_meta["num_ranks"]
+    lcc = BucketedLccEngine(g, labels, p, device="cpu", num_ranks=nr)
+    st, _, _ = lcc.lcc_call(lcc.init_state(), True)
+    tv, alive = lcc.state_to_global(st)
+    v = g.num_vertices
+    rng = np.random.RandomState(3)
+    code = rng.choice([0, 1], p=[0.85, 0.15], size=g.num_edges).astype(np.int64)
+    acsr = nlcc.AliveCsr.build(g, alive, tv != 0, meta=code)
+    acsr_j = jax_nlcc.AliveCsr.build(gj, alive, tv != 0, meta=code)
+    for field in ("ptr", "col", "meta"):
+        assert np.array_equal(getattr(acsr, field), getattr(acsr_j, field)), field
+    tv_j = tv.copy()
+    fw, fw_j = nlcc.ForwardedSets.empty(), jax_nlcc.ForwardedSets.empty()
+    filtered = 0
+    for c, cj in zip(cs, cjs):
+        hopc = np.zeros(len(c.indices) - 1, dtype=np.int64)
+        fw.reset_for(c, labels, tv, v)
+        fw_j.reset_for(cj, labels, tv_j, v)
+        if c.is_tds:
+            o = nlcc.run_tds(acsr, labels, tv, c, v, source_batch=64, num_ranks=nr,
+                             forwarded=fw, hopc=hopc)
+            oj = jax_nlcc.run_tds(acsr_j, labels, tv_j, cj, v, source_batch=64,
+                                  num_ranks=nr, forwarded=fw_j, hopc=hopc)
+            plain = nlcc.run_tds(acsr, labels, tv.copy(), c, v, source_batch=64, num_ranks=nr)
+        else:
+            o = nlcc.run_nem(acsr, labels, tv, c, v, num_ranks=nr, forwarded=fw, hopc=hopc)
+            oj = jax_nlcc.run_nem(acsr_j, labels, tv_j, cj, v, num_ranks=nr,
+                                  forwarded=fw_j, hopc=hopc)
+            plain = nlcc.run_nem(acsr, labels, tv.copy(), c, v, num_ranks=nr)
+        _same_outcome(o, oj)
+        assert np.array_equal(fw.keys, fw_j.keys)
+        filtered += int(o.messages < plain.messages)
+        assert nlcc.invalidate_sources(tv, c, o) == jax_nlcc.invalidate_sources(tv_j, cj, oj)
+        assert np.array_equal(tv, tv_j)
+    assert filtered > 0
+
+
+@pytest.mark.parametrize("use_native", [False, True], ids=["numpy", "native"])
+@pytest.mark.parametrize("columns", [2, 3])
+def test_read_edge_lists_equal_original(tmp_path, columns, use_native):
+    from fuzzypatternmatching_tpu.generators import edge_list as jax_edge_list
+    from fuzzypatternmatching_tpu_torch.generators import edge_list
+
+    if use_native and not native.available():
+        pytest.fail("the native library does not load")
+    rng = np.random.RandomState(columns)
+    paths = []
+    for i, n in enumerate((50, 0, 17)):
+        rows = rng.randint(0, 1000, size=(n, columns))
+        path = str(tmp_path / f"edges_{i}")
+        np.savetxt(path, rows, fmt="%d")
+        paths.append(path)
+    for undirected in (False, True):
+        got = edge_list.read_edge_lists(paths, undirected=undirected, use_native=use_native)
+        want = jax_edge_list.read_edge_lists(paths, undirected=undirected, use_native=use_native)
+        assert (got[2] is None) == (want[2] is None) == (columns == 2)
+        for x, y in zip(got, want):
+            if x is not None:
+                assert x.dtype == y.dtype and np.array_equal(x, y)
+        assert len(got[0]) == (67 if not undirected else 134)
