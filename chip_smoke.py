@@ -64,7 +64,23 @@ NVIDIA GPU:
  17. the device time of one full-graph non-init superstep at the state
      after the init superstep, by CUDA-graph replay in turns: the bucketed
      engine's default, counting and metadata branches and the flat
-     engine's superstep, each beside its bytes bound.
+     engine's superstep, each beside its bytes bound;
+ 18. the classic algorithms (algorithms/frontier.py) on the s21 graph of
+     phase 5: BFS, connected components, the 4-core, PageRank, SSSP and the
+     triangle count, each once warm and three times timed, asserting the
+     s21 anchors on every run (SSSP with unit weights equal to BFS's
+     levels; the triangle count also against a second formulation written
+     here: each oriented edge's two sorted oriented rows intersected);
+     iterations, the CSR upload, device ms of one iteration by CUDA-graph
+     replay beside its bytes bound, and the triangle count's wedges and
+     chunks;
+ 19. the port's CLIs end to end at s13: generate_rmat writes the golden
+     tree_s13 graph, transfer_graph backs it up, run_pattern_matching
+     restores it (-b) and searches --pattern-set 0 with -v labels and
+     --output-vertex-data (the golden tree_s13 result tree, plus the
+     vertex data), build_edge_metadata attaches weights, and every
+     run_algorithms algorithm gives on the card what it gives with
+     --device cpu (PageRank within rtol 1e-5, atol 1e-6).
 
 Any failure ends the run with a non-zero exit code, and so does a run
 without a CUDA device or without the rest of the repository. The last two
@@ -88,11 +104,20 @@ import numpy as np
 import torch
 
 from fuzzypatternmatching_tpu_torch import native
+from fuzzypatternmatching_tpu_torch.algorithms import frontier
+from fuzzypatternmatching_tpu_torch.cli import (
+    build_edge_metadata,
+    generate_rmat,
+    run_algorithms,
+    run_pattern_matching,
+    transfer_graph,
+)
 from fuzzypatternmatching_tpu_torch.engine import nlcc
 from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
 from fuzzypatternmatching_tpu_torch.engine.result import MatchResult
 from fuzzypatternmatching_tpu_torch.generators.rmat import rmat_all_ranks
 from fuzzypatternmatching_tpu_torch.golden import GOLDEN_BASE, REPO, build_config
+from fuzzypatternmatching_tpu_torch.graph import storage
 from fuzzypatternmatching_tpu_torch.graph.csr import degree_labels, from_edges
 from fuzzypatternmatching_tpu_torch.ops import _build
 from fuzzypatternmatching_tpu_torch.ops import lcc_superstep as ops
@@ -114,6 +139,21 @@ S21_CYCLE_ANCHORS = {
     "active_edges": 346,
     "subgraphs": 56,
     "traversed_edges": 105906296,
+}
+# algorithms/frontier.py on rmat_all_ranks(21, 4). The JAX package's
+# frontier.py on the CPU gives the same (its triangle count only with
+# jax_enable_x64, in 1,052 s); PageRank: damping 0.85, 20 steps.
+S21_ALGO_ANCHORS = {
+    "bfs_reached": 1363753,  # from vertex 0
+    "bfs_max_level": 5,
+    "bfs_parent_sum": 823700246002,  # over the reached vertices
+    "components": 733022,
+    "core4": 784409,
+    "pagerank_top5": [1996217, 1579409, 1061996, 334934, 1830903],
+    "pagerank_top5_values": [0.001769329304806888, 0.0006912612006999552,
+                             0.0006856226245872676, 0.0006700065569020808,
+                             0.0006667478010058403],
+    "triangles": 926391645,
 }
 CYCLE_CORPUS = os.path.join(REPO, "examples", "patterns_cycle", "0", "pattern")
 KERNELS = {
@@ -1117,6 +1157,316 @@ def time_mode_supersteps(engines):
             f"{100 * bound / ms:.1f} % of bound")
 
 
+INF32 = 2**31 - 1
+
+
+def triangles_by_row_intersection(g, dev, chunk=1 << 26):
+    """The triangle count by a second formulation: orient each edge from the
+    lower to the higher rank of (degree, id), sort the oriented rows, and for
+    each oriented edge (u, w) look every vertex of the shorter of the two
+    rows up in the other by a binary search over it. Returns (triangles,
+    lookups)."""
+    v = g.num_vertices
+    row_ptr = torch.from_numpy(g.row_ptr).to(dev)
+    deg = row_ptr[1:] - row_ptr[:-1]
+    ids = torch.arange(v, dtype=torch.int64, device=dev)
+    rank = torch.empty_like(ids)
+    rank[torch.argsort(deg * v + ids)] = ids
+    src = torch.repeat_interleave(ids, deg, output_size=g.num_edges)
+    dst = torch.from_numpy(g.cols.astype(np.int64)).to(dev)
+    up = rank[src] < rank[dst]
+    key = torch.sort(src[up] * v + dst[up]).values
+    del src, dst, up, rank
+    src, nbr = key // v, key % v
+    del key
+    optr = torch.zeros(v + 1, dtype=torch.int64, device=dev)
+    optr[1:] = torch.cumsum(torch.bincount(src, minlength=v), 0)
+    m = nbr.numel()
+    row_len = optr[1:] - optr[:-1]
+    # per oriented edge: walk the shorter row, search the longer
+    short_u = row_len[src] <= row_len[nbr]
+    walk = torch.where(short_u, src, nbr)
+    search = torch.where(short_u, nbr, src)
+    del short_u
+    per_edge = row_len[walk]
+    cum = torch.cumsum(per_edge, 0)
+    lookups = int(cum[-1]) if m else 0
+    if lookups == 0:
+        return 0, 0
+    steps = int(row_len.max()).bit_length() + 1
+    targets = chunk * torch.arange(1, -(-lookups // chunk), dtype=torch.int64, device=dev)
+    ends = torch.unique(torch.cat([torch.searchsorted(cum, targets, right=True),
+                                   torch.tensor([m], device=dev)]))
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    lo_exp = torch.where(starts > 0, cum[(starts - 1).clamp(min=0)], 0)
+    bounds = torch.stack([starts, ends, lo_exp, cum[ends - 1]], 1).cpu().tolist()
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for e0, e1, x0, x1 in bounds:
+        if x1 == x0:
+            continue
+        eid = torch.repeat_interleave(torch.arange(e0, e1, device=dev), per_edge[e0:e1],
+                                      output_size=x1 - x0)
+        off = torch.arange(x0, x1, device=dev) - (cum[eid] - per_edge[eid])
+        z = nbr[optr[walk[eid]] + off]
+        s_row = search[eid]
+        del off
+        lo, hi = optr[s_row], optr[s_row + 1]
+        end = hi
+        del eid, s_row
+        for _ in range(steps):
+            mid = (lo + hi) >> 1
+            less = nbr[mid.clamp(max=m - 1)] < z
+            open_ = lo < hi
+            lo = torch.where(open_ & less, mid + 1, lo)
+            hi = torch.where(open_ & ~less, mid, hi)
+        total += ((lo < end) & (nbr[lo.clamp(max=m - 1)] == z)).sum()
+    return int(total), lookups
+
+
+def algo_bytes(g):
+    """Bytes one iteration of each algorithm must move (the whole call for
+    the triangle count): the CSR read once (cols int32, row_ptr int64),
+    each vertex array read and written once, SSSP's float32 weights."""
+    v, e = g.num_vertices, g.num_edges
+    csr = 4 * e + 8 * (v + 1)
+    return {"bfs": csr + 16 * v, "cc": csr + 8 * v, "kcore": csr + 2 * v,
+            "pagerank": csr + 8 * v, "sssp": csr + 4 * e + 8 * v, "triangles": csr}
+
+
+def step_fns(g, dev):
+    """One iteration of each iterative algorithm on ``g``, at the state after
+    two iterations (PageRank: its first), for CUDA-graph replay."""
+    col, erow, deg = frontier._device_csr(g, dev)
+    v = g.num_vertices
+    level = torch.full((v,), INF32, dtype=torch.int32, device=dev)
+    parent = torch.full((v,), -1, dtype=torch.int32, device=dev)
+    level[0], parent[0] = 0, 0
+    w = torch.ones(g.num_edges, dtype=torch.float32, device=dev)
+    dist = torch.full((v,), torch.inf, dtype=torch.float32, device=dev)
+    dist[0] = 0.0
+    steps = {
+        "bfs": (lambda lv, p: frontier._bfs_step(col, erow, lv, p), [level, parent]),
+        "cc": (lambda c: frontier._cc_step(col, erow, c),
+               [torch.arange(v, dtype=torch.int32, device=dev)]),
+        "kcore": (lambda a: frontier._kcore_step(col, erow, a, 4),
+                  [torch.ones(v, dtype=torch.bool, device=dev)]),
+        "sssp": (lambda d: frontier._sssp_step(col, erow, w, d), [dist]),
+    }
+    fns = {}
+    for name, (step, state) in steps.items():
+        for _ in range(2):
+            state = list(step(*state)[:-1])
+        fns[name] = (lambda step=step, state=state: step(*state))
+    pr = torch.full((v,), 1.0 / v, dtype=torch.float32, device=dev)
+    out_deg = deg.to(torch.float32)
+    fns["pagerank"] = lambda: frontier._pagerank_step(col, erow, out_deg, pr, 0.85)
+    return fns
+
+
+def check_algorithm(name, out, anchors):
+    """Assert the anchors on one algorithm's output; returns a summary."""
+    if name == "bfs":
+        level, parent = out
+        reached = level < INF32
+        got = (int(reached.sum()), int(level[reached].max()),
+               int(parent[reached].astype(np.int64).sum()))
+        want = (anchors["bfs_reached"], anchors["bfs_max_level"], anchors["bfs_parent_sum"])
+    elif name == "cc":
+        got, want = len(np.unique(out)), anchors["components"]
+    elif name == "kcore":
+        got, want = int(out.sum()), anchors["core4"]
+    elif name == "pagerank":
+        top = np.argsort(out)[-5:][::-1]
+        got, want = [int(x) for x in top], anchors["pagerank_top5"]
+        if got == want and not np.allclose(out[top], anchors["pagerank_top5_values"],
+                                           rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"pagerank top-5 values {out[top]}")
+        if abs(float(out.sum()) - 1.0) > 1e-5:
+            raise AssertionError(f"pagerank sums to {float(out.sum())}")
+    elif name == "sssp":
+        got, want = int(np.isfinite(out).sum()), anchors["bfs_reached"]
+    else:
+        got, want = out, anchors["triangles"]
+    if got != want:
+        raise AssertionError(f"{name}: got {got}, expected {want}")
+    return got
+
+
+def run_algorithms_s21(g, dev, anchors=S21_ALGO_ANCHORS):
+    """Phase 18: each classic algorithm on ``g``, warm and three times
+    timed, its anchors asserted on every run; then its iteration's device
+    time against the bytes bound. Returns the table rows."""
+    t0 = time.perf_counter()
+    csr = frontier._device_csr(g, dev)
+    torch.cuda.synchronize()
+    log(f"[18] CSR upload + edge rows on the card (what each call does first): "
+        f"{time.perf_counter() - t0:.4f} s for V={g.num_vertices} E={g.num_edges}")
+    del csr
+    ones = np.ones(g.num_edges)
+    calls = {
+        "bfs": lambda: frontier.breadth_first_search(g, 0, device=dev),
+        "cc": lambda: frontier.connected_components(g, device=dev),
+        "kcore": lambda: frontier.kth_core(g, 4, device=dev),
+        "pagerank": lambda: frontier.pagerank(g, device=dev),
+        "sssp": lambda: frontier.sssp(g, 0, ones, device=dev),
+        "triangles": lambda: frontier.triangle_count(g, device=dev),
+    }
+    seconds, outs = {}, {}
+    for name, call in calls.items():
+        runs = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t)
+            got = check_algorithm(name, out, anchors)
+        seconds[name], outs[name] = runs, out
+        log(f"[18] {name}: warm {runs[0]:.4f} s, timed "
+            f"{[round(x, 4) for x in runs[1:]]} s, {frontier.last_stats[name]}, "
+            f"anchors OK ({got}), host loadavg {os.getloadavg()}")
+    level = outs["bfs"][0]
+    as_dist = np.where(level < INF32, level.astype(np.float32), np.float32(np.inf))
+    if not np.array_equal(outs["sssp"], as_dist):
+        raise AssertionError("sssp with unit weights differs from the BFS levels")
+    t = time.perf_counter()
+    second, lookups = triangles_by_row_intersection(g, dev)
+    torch.cuda.synchronize()
+    log(f"[18] triangles by oriented-row intersection: {second} ({lookups} row lookups, "
+        f"{time.perf_counter() - t:.2f} s); the package's count {outs['triangles']}")
+    if second != outs["triangles"]:
+        raise AssertionError(f"triangle counts differ: {outs['triangles']} / {second}")
+    nbytes = algo_bytes(g)
+    fns = step_fns(g, dev)
+    rows = []
+    for name in calls:
+        stats = frontier.last_stats[name]
+        best = min(seconds[name][1:])
+        bound = nbytes[name] / HBM_BYTES_PER_MS
+        if name == "triangles":
+            iters, ms = stats["chunks"], 1e3 * best / stats["chunks"]
+            extra = (f"{stats['wedges']} wedges in {stats['chunks']} chunks, "
+                     f"{stats['wedges'] / best / 1e9:.3f} G wedges/s (timed call)")
+            share = 100 * bound / (1e3 * best)
+        else:
+            iters = stats["iterations"]
+            ms = time_cuda(fns[name], reps=5)
+            extra = f"{1e3 * best / iters:.3f} ms of search time per iteration"
+            share = 100 * bound / ms
+        rows.append((name, iters, round(seconds[name][0], 4),
+                     [round(x, 4) for x in seconds[name][1:]], round(ms, 4),
+                     round(bound, 4), round(share, 2)))
+        log(f"[18] {name}: {iters} {'chunks' if name == 'triangles' else 'iterations'}, "
+            f"device {ms:.4f} ms per {'chunk (timed call / chunks)' if name == 'triangles' else 'iteration (CUDA-graph replay)'}, "
+            f"bound {bound:.4f} ms ({nbytes[name]} B{' for the whole call' if name == 'triangles' else ' per iteration'}), "
+            f"{share:.2f} % of bound; {extra}")
+    log(f"[18] (algorithm, iterations or chunks, warm s, timed s, device ms per "
+        f"iteration or chunk, bound ms, share %): {rows}")
+    return rows
+
+
+def result_tree(base):
+    """{relative path: rows} of a result tree, wall-clock fields stripped
+    (tests/test_golden_results.py's normalisation)."""
+    tree = {}
+    for root, _, files in os.walk(base):
+        for fn in files:
+            rows = []
+            with open(os.path.join(root, fn)) as f:
+                for line in f:
+                    parts = [p.strip() for p in line.rstrip("\n").split(",")]
+                    if fn in ("result_superstep", "result_step", "result_iteration"):
+                        parts = parts[:-1]
+                    elif fn == "result_pattern_set":
+                        parts[3] = "0.0"
+                    rows.append(", ".join(parts))
+            tree[os.path.relpath(os.path.join(root, fn), base)] = rows
+    return tree
+
+
+def quiet(main, argv):
+    """Run a CLI's main(argv); returns what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+CLI_ALGORITHMS = (
+    ("bfs", ["-s", "3"]), ("cc", []), ("pagerank", []), ("kcore", ["-k", "4"]),
+    ("sssp", ["-s", "3"]), ("triangles", []), ("fuzzywalk", ["--walk-labels", "3,4,3"]),
+)
+
+
+def run_cli_s13(golden, card="cuda"):
+    """Phase 19: the port's CLIs end to end at s13 (see the module
+    docstring); ``card`` is the device the CLIs are given."""
+    cfg = golden["configs"]["tree_s13"]
+    corpus = os.path.join(REPO, cfg["corpus"])
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        db, backup, out = (os.path.join(tmp, x) for x in ("db", "backup", "out"))
+        quiet(generate_rmat.main, ["-s", "13", "--no-scramble", "-p", "4", "-o", db])
+        g, stored, _ = storage.load(db)
+        gg, labels, _, _ = build_config(cfg["scale"], corpus)
+        for name in ("row_ptr", "cols", "rev_edge", "raw_degree"):
+            if not np.array_equal(getattr(g, name), getattr(gg, name)):
+                raise AssertionError(f"generate_rmat -s 13: {name} is not the golden graph's")
+        if not np.array_equal(stored, labels):
+            raise AssertionError("generate_rmat -s 13: stored labels are not degree labels")
+        vdata = os.path.join(tmp, "vdata_")
+        np.savetxt(vdata + "0", np.stack([np.arange(g.num_vertices), labels], 1), fmt="%d")
+        quiet(transfer_graph.main, [db, backup])
+        printed = quiet(run_pattern_matching.main, [
+            "-i", db, "-b", backup, "-p", os.path.join(REPO, "examples", "patterns"),
+            "-o", out, "--pattern-set", "0", "-v", vdata, "--output-vertex-data",
+            "--device", card,
+        ])
+        tree = result_tree(out)
+        vfiles = sorted(k for k in tree if "all_ranks_vertex_data" in k)
+        want = result_tree(os.path.join(GOLDEN_BASE, "tree_s13"))
+        if {k: v for k, v in tree.items() if k not in vfiles} != want:
+            raise AssertionError("run_pattern_matching: the result tree is not tree_s13's")
+        rows = sorted(r for k in vfiles for r in tree[k])
+        expect = sorted(f"{v % 4}, l, {v}, {int(g.raw_degree[v])}, {int(labels[v])}"
+                        for v in range(g.num_vertices))
+        if len(vfiles) != golden["num_ranks"] or rows != expect:
+            raise AssertionError("run_pattern_matching: vertex data rows differ")
+        log(f"[19] generate_rmat -s 13 wrote the golden graph; run_pattern_matching "
+            f"(-b, --pattern-set 0, -v, --output-vertex-data) on {card}: the tree_s13 "
+            f"golden tree ({len(want)} files) and {len(vfiles)} vertex data files; "
+            + " | ".join(ln for ln in printed.splitlines() if ln.startswith("pattern [0]: it")))
+        src = np.repeat(np.arange(g.num_vertices), np.diff(g.row_ptr))
+        wfile = os.path.join(tmp, "weights_0")
+        np.savetxt(wfile, np.stack([src, g.cols, 1 + (src * 7 + g.cols * 3) % 5], 1), fmt="%d")
+        quiet(build_edge_metadata.main, ["-i", db, wfile])
+        if storage.load(db)[2] is None:
+            raise AssertionError("build_edge_metadata stored no edge data")
+        lines = []
+        for algo, flags in CLI_ALGORITHMS:
+            res = {}
+            for device in (card, "cpu"):
+                path = os.path.join(tmp, f"{algo}_{device}.npy")
+                text = quiet(run_algorithms.main, [algo, "-i", db, "--device", device,
+                                                   "-o", path] + flags)
+                res[device] = ([ln for ln in text.splitlines()
+                                if not ln.startswith(("time:", "wrote "))],
+                               np.load(path) if os.path.exists(path) else None)
+            (text, got), (text_cpu, want) = res[card], res["cpu"]
+            if algo == "pagerank":
+                same = np.allclose(got, want, rtol=1e-5, atol=1e-6)
+            else:
+                same = text == text_cpu and (got is None or np.array_equal(got, want, equal_nan=True))
+            if not same:
+                raise AssertionError(f"run_algorithms {algo}: {card} and cpu differ: {text} / {text_cpu}")
+            lines.append(text[1])
+        log(f"[19] build_edge_metadata, then run_algorithms on {card} equal to --device cpu: "
+            f"{lines}; phase {time.perf_counter() - t_start:.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1201,6 +1551,11 @@ def main() -> int:
     engines = run_s21_modes(g, labels, pattern, constraints, dev, lp_rows(r_full))
     engines["default"] = compact
     time_mode_supersteps(engines)
+    del engines, compact
+    torch.cuda.empty_cache()
+
+    run_algorithms_s21(g, dev)
+    run_cli_s13(golden)
 
     bad = sorted(
         k for k in sys.modules

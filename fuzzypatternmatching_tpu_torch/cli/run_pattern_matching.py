@@ -3,18 +3,22 @@
 Usage:
   python -m fuzzypatternmatching_tpu_torch.cli.run_pattern_matching \\
       -i <graph_db> -p <pattern_dir> -o <result_dir> \\
-      [-r <output_ranks>] [-x <tds_batch>] [--max-iterations N] \\
-      [-e <edge_data_base | db>] [--counting] [--lcc-engine {bucketed,flat}] \\
-      [--no-compact] [--device {cuda,cpu}]
+      [-v <vertex_data_base>] [-b <backup_db>] [--pattern-set N] \\
+      [--output-vertex-data] [-r <output_ranks>] [-x <tds_batch>] \\
+      [--max-iterations N] [-e <edge_data_base | db>] [--counting] \\
+      [--lcc-engine {bucketed,flat}] [--no-compact] [--device {cuda,cpu}]
 
-Searches ``<pattern_dir>/0`` on a graph DB (the JAX package's
-``graph.storage.save`` writes one; ``graph/storage.py`` reads it) and writes
-the result tree with ``io/results.py::write_results`` — the layout of the
-JAX package's CLI. ``-e`` (edge-metadata matching), ``--counting`` and
-``--lcc-engine`` behave as the JAX package's CLI flags of the same names;
-``--lcc-engine sharded`` (the multi-device plane) is not ported.
-``--device cuda`` (the default) requires a CUDA card; there is no fallback
-to the CPU.
+``pattern_dir`` contains numbered subdirectories (the "pattern set"); like
+the reference, only ``<pattern_dir>/0`` is searched by default
+(beta.cpp:424); ``--pattern-set N`` searches 0..N-1 and ``--pattern-set 0``
+every numbered subdirectory. The graph DB is what ``graph/storage.py``
+writes (``cli.generate_rmat``, ``cli.ingest_edge_list``); ``-b`` restores
+it from a backup first (``storage.transfer``). The result tree is the
+layout of the JAX package's CLI (``io/results.py``). ``-v``, ``-e``,
+``--counting``, ``--lcc-engine`` and ``--output-vertex-data`` behave as the
+JAX package's flags of the same names; ``--lcc-engine sharded`` (the
+multi-device plane) is not ported. ``--device cuda`` (the default) requires
+a CUDA card; there is no fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 from ..engine.driver import MatchEngine
 from ..graph import storage
 from ..io.labels import resolve_labels
-from ..io.results import write_results
+from ..io.results import write_results, write_vertex_data
 from ..pattern.nonlocal_constraint import load_nonlocal_constraints
 from ..pattern.pattern_graph import load_pattern_graph
 
@@ -88,6 +92,10 @@ def main(argv=None):
     ap.add_argument("-i", "--input", required=True, help="graph DB directory")
     ap.add_argument("-p", "--pattern-dir", required=True)
     ap.add_argument("-o", "--output", required=True, help="result directory")
+    ap.add_argument("-v", "--vertex-data", default=None,
+                    help="vertex label file base (default: degree labels)")
+    ap.add_argument("-b", "--backup", default=None,
+                    help="restore the graph DB from this backup first")
     ap.add_argument("-e", "--edge-data", default=None,
                     help="activate edge-metadata-constrained matching: "
                          "'db' uses the metadata stored in the graph DB, "
@@ -100,6 +108,9 @@ def main(argv=None):
                     help="output ranks (default: graph DB shard count)")
     ap.add_argument("-x", "--batch", type=int, default=1 << 16,
                     help="token-source batch size (TDS)")
+    ap.add_argument("--pattern-set", type=int, default=1,
+                    help="number of pattern subdirectories to search "
+                         "(0 = every numbered subdirectory present)")
     ap.add_argument("--max-iterations", type=int, default=100)
     ap.add_argument("--lcc-engine", choices=["bucketed", "flat", "sharded"],
                     default="bucketed")
@@ -108,6 +119,8 @@ def main(argv=None):
                          "count thresholds from the template "
                          "(label_propagation_pattern_matching_nonunique_"
                          "counting_ee.hpp); works with every --lcc-engine")
+    ap.add_argument("--output-vertex-data", action="store_true",
+                    help="dump all_ranks_vertex_data files (beta.cpp:379)")
     ap.add_argument("--no-compact", action="store_true",
                     help="run every LCC superstep on the full graph instead "
                          "of a pruned-subgraph engine after the first "
@@ -120,10 +133,12 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
 
+    if args.backup:
+        storage.transfer(args.backup, args.input)
     graph, stored_labels, stored_edata = storage.load(args.input)
     print(f"opened graph DB: V={graph.num_vertices} E={graph.num_edges}")
-    labels = resolve_labels(graph, None, stored_labels)
-    if stored_labels is None:
+    labels = resolve_labels(graph, args.vertex_data, stored_labels)
+    if args.vertex_data is None and stored_labels is None:
         print("using degree labels ceil(log2(d+1))")
 
     edge_data = None
@@ -142,46 +157,64 @@ def main(argv=None):
         with open(os.path.join(args.input, "meta.json")) as f:
             num_ranks = json.load(f)["num_shards"]
 
-    os.makedirs(args.output, exist_ok=True)
+    if args.output_vertex_data:
+        write_vertex_data(args.output, labels, graph.raw_degree, num_ranks)
+
     pattern_set_path = os.path.join(args.output, "result_pattern_set")
+    os.makedirs(args.output, exist_ok=True)
     if os.path.exists(pattern_set_path):
         os.remove(pattern_set_path)
 
-    prefix = os.path.join(args.pattern_dir, "0", "pattern")
-    if not os.path.isdir(os.path.dirname(prefix)):
-        ap.error(f"pattern subdirectory 0 not found under {args.pattern_dir}")
-    pattern = load_pattern_graph(prefix)
-    constraints = load_nonlocal_constraints(prefix, pattern.vertex_data)
-    print(
-        f"pattern [0]: K={pattern.vertex_count} diameter={pattern.diameter} "
-        f"constraints={len(constraints)}"
+    available = sorted(
+        int(d) for d in os.listdir(args.pattern_dir)
+        if d.isdigit() and os.path.isdir(os.path.join(args.pattern_dir, d))
     )
-    if edge_data is not None and pattern.edge_data is None:
+    if args.pattern_set == 0:
+        pattern_sets = available
+    else:
+        pattern_sets = list(range(args.pattern_set))
+        missing = [p for p in pattern_sets if p not in available]
+        if missing:
+            ap.error(
+                f"pattern subdirectories {missing} not found under "
+                f"{args.pattern_dir} (available: {available}); "
+                "use --pattern-set 0 to search every set present"
+            )
+
+    for ps in pattern_sets:
+        prefix = os.path.join(args.pattern_dir, str(ps), "pattern")
+        pattern = load_pattern_graph(prefix)
+        constraints = load_nonlocal_constraints(prefix, pattern.vertex_data)
         print(
-            "pattern [0]: no pattern_edge_data file — edge-metadata "
-            "constraints inactive for this pattern"
+            f"pattern [{ps}]: K={pattern.vertex_count} "
+            f"diameter={pattern.diameter} constraints={len(constraints)}"
         )
-    t0 = time.time()
-    engine = MatchEngine(
-        graph, labels, pattern, constraints, num_ranks=num_ranks,
-        source_batch=args.batch, lcc_engine=args.lcc_engine,
-        counting=args.counting, edge_data=edge_data,
-        compact=not args.no_compact, device=args.device,
-    )
-    result = engine.run(max_iterations=args.max_iterations)
-    print(
-        f"pattern [0]: iterations={result.iterations} "
-        f"time={time.time()-t0:.2f}s "
-        f"active_vertices={len(result.active_vertices)} "
-        f"active_edges={len(result.active_edges)} "
-        f"found={result.pattern_found}"
-    )
-    for pl, subs in sorted(result.subgraphs.items()):
-        print(f"  constraint [{pl}]: {len(subs)} enumerated subgraphs")
-    write_results(
-        args.output, 0, result, labels, num_ranks,
-        pattern.edge_count, pattern.vertex_count, len(constraints),
-    )
+        if edge_data is not None and pattern.edge_data is None:
+            print(
+                f"pattern [{ps}]: no pattern_edge_data file — edge-metadata "
+                "constraints inactive for this pattern"
+            )
+        t0 = time.time()
+        engine = MatchEngine(
+            graph, labels, pattern, constraints, num_ranks=num_ranks,
+            source_batch=args.batch, lcc_engine=args.lcc_engine,
+            counting=args.counting, edge_data=edge_data,
+            compact=not args.no_compact, device=args.device,
+        )
+        result = engine.run(max_iterations=args.max_iterations)
+        print(
+            f"pattern [{ps}]: iterations={result.iterations} "
+            f"time={time.time()-t0:.2f}s "
+            f"active_vertices={len(result.active_vertices)} "
+            f"active_edges={len(result.active_edges)} "
+            f"found={result.pattern_found}"
+        )
+        for pl, subs in sorted(result.subgraphs.items()):
+            print(f"  constraint [{pl}]: {len(subs)} enumerated subgraphs")
+        write_results(
+            args.output, ps, result, labels, num_ranks,
+            pattern.edge_count, pattern.vertex_count, len(constraints),
+        )
     print(f"results written to {args.output}")
 
 

@@ -1,7 +1,7 @@
 """Result directory writer — reproduces the reference's output layout so the
 reference's own merge scripts (examples/scripts/total_active_count.py) work
 unchanged. The port's own copy of ``fuzzypatternmatching_tpu/io/results.py``
-(``write_results``); both write the same bytes.
+(``write_results``, ``write_vertex_data``); both write the same bytes.
 
 Layout (run_pattern_matching_beta.cpp:504-535, 1086-1125, 1386-1425):
 
@@ -29,6 +29,26 @@ import os
 import numpy as np
 
 from ..engine.result import MatchResult
+
+
+def write_vertex_data(
+    out_dir: str, labels: np.ndarray, degrees: np.ndarray, num_ranks: int
+) -> None:
+    """Optional vertex-metadata dump (beta.cpp:379-404:
+    ``<out>/0/all_ranks_vertex_data/vertex_data_<r>`` with
+    "rank, l, vertex, degree, label" rows; the l/c/d locality codes are
+    collapsed to 'l' — there is no delegate distinction here)."""
+    base = os.path.join(out_dir, "0", "all_ranks_vertex_data")
+    os.makedirs(base, exist_ok=True)
+    outs = [
+        open(os.path.join(base, f"vertex_data_{r}"), "w")
+        for r in range(num_ranks)
+    ]
+    for v in range(len(labels)):
+        r = v % num_ranks
+        outs[r].write(f"{r}, l, {v}, {int(degrees[v])}, {int(labels[v])}\n")
+    for f in outs:
+        f.close()
 
 
 def write_results(

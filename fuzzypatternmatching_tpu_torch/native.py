@@ -2,8 +2,9 @@
 (``native/fpm_native.cpp``, built into ``native/libfpm_native.so``).
 
 The port's own copy of ``fuzzypatternmatching_tpu/native.py``, reduced to
-the three entry points the port calls: the multi-rank R-MAT generator, the
-CSR builder and the edge-list file parser. The library is found next to the package (``<repo>/native``),
+the four entry points the port calls: the multi-rank R-MAT generator, its
+spill to owner shards (the chunked DB build), the CSR construction and the
+edge-list file parser. The library is found next to the package (``<repo>/native``),
 and built with ``make`` on first use when only the source is there. Every
 caller has a NumPy path that gives the same arrays, so the port works
 without it.
@@ -66,6 +67,13 @@ def _load():
         ctypes.c_void_p,
     ]
     lib.fpm_read_edge_list.restype = ctypes.c_int64
+    lib.fpm_rmat_spill_shards.argtypes = [
+        ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint64, ctypes.c_uint32,
+        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint64,
+        ctypes.c_char_p, i64p, ctypes.c_uint32, ctypes.c_uint32,
+    ]
+    lib.fpm_rmat_spill_shards.restype = ctypes.c_int64
     _lib = lib
     return _lib
 
@@ -98,6 +106,44 @@ def rmat_all_ranks_native(
         int(scramble), int(undirected), src, dst,
     )
     return src, dst
+
+
+def rmat_spill_shards_native(
+    spill_dir: str,
+    scale: int,
+    n_ranks: int,
+    num_shards: int,
+    block: int,
+    edges_per_vertex: int = 16,
+    scramble: bool = True,
+    undirected: bool = True,
+    base_seed: int = 5489,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+    d: float = 0.05,
+    rank_lo: int = 0,
+    rank_hi: int | None = None,
+) -> np.ndarray:
+    """Stream ranks [rank_lo, rank_hi) of the multi-rank R-MAT into
+    per-(shard, rank) packed-key spill files with bounded memory; returns
+    the raw (duplicate-inclusive) degree contribution OF THOSE RANKS (the
+    full degrees are the sum over all rank ranges). See
+    fpm_rmat_spill_shards."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    per_rank = (edges_per_vertex << scale) // n_ranks
+    deg = np.zeros(1 << scale, dtype=np.int64)
+    rc = lib.fpm_rmat_spill_shards(
+        base_seed, scale, per_rank, n_ranks, a, b, c, d,
+        int(scramble), int(undirected), num_shards, block,
+        spill_dir.encode(), deg,
+        rank_lo, n_ranks if rank_hi is None else rank_hi,
+    )
+    if rc != 0:
+        raise IOError(f"spill generation failed in {spill_dir}")
+    return deg
 
 
 def build_csr_native(src: np.ndarray, dst: np.ndarray, num_vertices: int):

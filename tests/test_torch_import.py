@@ -62,6 +62,16 @@ def test_every_port_module_is_listed():
         "fuzzypatternmatching_tpu_torch.utils.page_cache",
         "fuzzypatternmatching_tpu_torch.native",
         "fuzzypatternmatching_tpu_torch.golden",
+        "fuzzypatternmatching_tpu_torch.algorithms.frontier",
+        "fuzzypatternmatching_tpu_torch.algorithms.fuzzy_walk",
+        "fuzzypatternmatching_tpu_torch.cli.run_algorithms",
+        "fuzzypatternmatching_tpu_torch.cli.generate_rmat",
+        "fuzzypatternmatching_tpu_torch.cli.ingest_edge_list",
+        "fuzzypatternmatching_tpu_torch.cli.transfer_graph",
+        "fuzzypatternmatching_tpu_torch.cli.build_edge_metadata",
+        "fuzzypatternmatching_tpu_torch.graph.build",
+        "fuzzypatternmatching_tpu_torch.utils.dist",
+        "fuzzypatternmatching_tpu_torch.utils.log_step",
     ):
         assert name in mods
 

@@ -453,3 +453,194 @@ def test_read_edge_lists_equal_original(tmp_path, columns, use_native):
             if x is not None:
                 assert x.dtype == y.dtype and np.array_equal(x, y)
         assert len(got[0]) == (67 if not undirected else 134)
+
+
+def _db_files_equal(a, b):
+    """Two graph DB directories hold the same files: meta.json equal but
+    for its uuid, every other file byte for byte."""
+    names = sorted(
+        os.path.relpath(os.path.join(d, f), a) for d, _, fs in os.walk(a) for f in fs
+    )
+    assert names == sorted(
+        os.path.relpath(os.path.join(d, f), b) for d, _, fs in os.walk(b) for f in fs
+    )
+    for rel in names:
+        with open(os.path.join(a, rel), "rb") as fa, open(os.path.join(b, rel), "rb") as fb:
+            x, y = fa.read(), fb.read()
+        if rel == "meta.json":
+            x, y = json.loads(x), json.loads(y)
+            x.pop("uuid"), y.pop("uuid")
+        assert x == y, rel
+    return names
+
+
+@pytest.mark.parametrize("num_shards", [1, 3])
+@pytest.mark.parametrize("extras", [False, True], ids=["bare", "labels_edge_data"])
+def test_storage_save_writes_the_jax_files(tmp_path, num_shards, extras):
+    gj, labels, edata = _rmat_graph_and_extras()
+    g = csr.Graph(gj.num_vertices, gj.row_ptr, gj.cols, gj.rev_edge,
+                  gj.raw_degree, gj.edge_row)
+    kw = dict(labels=labels, edge_data=edata) if extras else {}
+    storage.save(g, str(tmp_path / "port"), num_shards=num_shards, **kw)
+    jax_storage.save(gj, str(tmp_path / "jax"), num_shards=num_shards, **kw)
+    names = _db_files_equal(str(tmp_path / "port"), str(tmp_path / "jax"))
+    assert len(names) == 1 + num_shards * (6 if extras else 4)
+    storage.transfer(str(tmp_path / "port"), str(tmp_path / "copy"))
+    _db_files_equal(str(tmp_path / "copy"), str(tmp_path / "jax"))
+    meta = json.loads((tmp_path / "port" / "meta.json").read_text())
+    meta["clean_close"] = False
+    (tmp_path / "port" / "meta.json").write_text(json.dumps(meta))
+    with pytest.raises(ValueError):
+        storage.transfer(str(tmp_path / "port"), str(tmp_path / "dirty"))
+
+
+def test_open_db_reads_what_the_jax_graphdb_reads(tmp_path):
+    gj, labels, edata = _rmat_graph_and_extras()
+    base = str(tmp_path / "db")
+    jax_storage.save(gj, base, num_shards=3, labels=labels, edge_data=edata)
+    db, db_j = storage.open_db(base), jax_storage.open_db(base)
+    for name in ("num_vertices", "num_edges", "num_shards", "block"):
+        assert getattr(db, name) == getattr(db_j, name)
+    for name in ("row_ptr", "raw_degree", "labels", "edge_starts"):
+        assert np.array_equal(getattr(db, name), getattr(db_j, name)), name
+    rng = np.random.RandomState(0)
+    for _ in range(20):
+        lo, hi = sorted(rng.randint(0, gj.num_edges + 1, size=2))
+        for name in ("cols_range", "rev_range", "edge_row_range"):
+            assert np.array_equal(getattr(db, name)(lo, hi), getattr(db_j, name)(lo, hi))
+    ids = rng.randint(0, gj.num_edges, size=200)
+    assert np.array_equal(db.cols_at(ids), db_j.cols_at(ids))
+    assert np.array_equal(db.edge_row_at(ids), db_j.edge_row_at(ids))
+    assert db.degree(5) == db_j.degree(5)
+    g = db.to_graph()
+    assert isinstance(g, csr.Graph)
+    _same_arrays(g, db_j.to_graph())
+
+
+def test_build_db_from_chunks_writes_the_jax_files(tmp_path):
+    """The generic (ingest-path) chunked build from raw (src, dst) chunks,
+    with the numpy spill: the same shard files as the JAX build."""
+    from fuzzypatternmatching_tpu.graph import build as jax_build
+    from fuzzypatternmatching_tpu_torch.graph import build
+
+    src, dst = jax_rmat.rmat_all_ranks(10, 4, use_native=False, scramble=False)
+
+    def chunks(n=7):
+        step = -(-len(src) // n)
+        for lo in range(0, len(src), step):
+            yield src[lo : lo + step], dst[lo : lo + step]
+
+    build.build_db_from_chunks(str(tmp_path / "port"), chunks(), 1 << 10, num_shards=4)
+    jax_build.build_db_from_chunks(str(tmp_path / "jax"), chunks(), 1 << 10, num_shards=4)
+    _db_files_equal(str(tmp_path / "port"), str(tmp_path / "jax"))
+
+
+def test_multiprocess_rmat_build_writes_the_single_process_db(tmp_path):
+    """Two shares of build_rmat_db_distributed (threads here, sharing one
+    output directory through the file barriers) write the DB that the JAX
+    package's single-process build_rmat_db writes."""
+    import threading
+
+    from fuzzypatternmatching_tpu.graph import build as jax_build
+    from fuzzypatternmatching_tpu_torch.graph import build
+
+    base = str(tmp_path / "port")
+    errors = []
+
+    def one(pid):
+        try:
+            build.build_rmat_db_distributed(base, 9, pid, 2, scramble=False, timeout=60.0)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(pid,)) for pid in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    jax_build.build_rmat_db(str(tmp_path / "jax"), 9, scramble=False)
+    _db_files_equal(base, str(tmp_path / "jax"))
+
+
+def test_rmat_spill_shards_native_equals_original(tmp_path):
+    from fuzzypatternmatching_tpu import native as jax_native
+
+    if not native.available():
+        pytest.fail("the native library does not load")
+    for name, mod in (("port", native), ("jax", jax_native)):
+        os.makedirs(tmp_path / name)
+        deg = mod.rmat_spill_shards_native(str(tmp_path / name), 10, 4, 3, 342,
+                                           scramble=False, rank_lo=1, rank_hi=3)
+        np.save(tmp_path / f"deg_{name}.npy", deg)
+    assert np.array_equal(np.load(tmp_path / "deg_port.npy"), np.load(tmp_path / "deg_jax.npy"))
+    _db_files_equal(str(tmp_path / "port"), str(tmp_path / "jax"))
+
+
+def test_log_step_prints_what_the_original_prints(monkeypatch):
+    import io
+    import re
+
+    from fuzzypatternmatching_tpu.utils import log_step as jax_log_step
+    from fuzzypatternmatching_tpu_torch.utils import log_step
+
+    def shape(text):
+        # numbers vary from run to run; the lines and their words do not
+        return re.sub(r"\d+(\.\d+)?", "N", text)
+
+    outs = []
+    for mod in (log_step, jax_log_step):
+        buf = io.StringIO()
+        with mod.LogStep("pass A", out=buf):
+            pass
+        outs.append(buf.getvalue())
+    assert shape(outs[0]) == shape(outs[1]) and "Finished: pass A" in outs[0]
+    assert log_step.rss_kb()[0] > 0 and log_step.dirty_pages_kb() is not None
+    monkeypatch.setenv("FPM_LOG_STEPS", "0")
+    buf = io.StringIO()
+    with log_step.LogStep("pass B", out=buf):
+        pass
+    assert buf.getvalue() == ""
+
+
+def test_add_distributed_args_equals_original():
+    import argparse
+
+    from fuzzypatternmatching_tpu.utils import dist as jax_dist
+    from fuzzypatternmatching_tpu_torch.utils import dist
+
+    argv = ["--distributed", "--coordinator", "h:1", "--num-processes", "3", "--process-id", "2"]
+    for args in ([], argv):
+        got, want = argparse.ArgumentParser(), argparse.ArgumentParser()
+        dist.add_distributed_args(got)
+        jax_dist.add_distributed_args(want)
+        assert vars(got.parse_args(args)) == vars(want.parse_args(args))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fuzzy_walk_equals_original(seed):
+    from fuzzypatternmatching_tpu.algorithms import fuzzy_walk as jax_fuzzy_walk
+    from fuzzypatternmatching_tpu_torch.algorithms import fuzzy_walk
+
+    gj, _, _ = _rmat_graph_and_extras(scale=8)
+    g = csr.Graph(gj.num_vertices, gj.row_ptr, gj.cols, gj.rev_edge,
+                  gj.raw_degree, gj.edge_row)
+    labels = np.random.RandomState(seed).randint(1, 4, size=g.num_vertices).astype(np.uint64)
+    for wl, wi in (([1, 2, 3], [0, 1, 2]), ([1, 2, 1, 2], [0, 1, 2, 3]),
+                   ([2, 3, 2], [0, 1, 0]), ([2], [0])):
+        got = fuzzy_walk.fuzzy_walk_ranks(g, labels, np.array(wl), np.array(wi), batch_size=100)
+        want = jax_fuzzy_walk.fuzzy_walk_ranks(gj, labels, np.array(wl), np.array(wi),
+                                               batch_size=100)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert fuzzy_walk.MAX_WALK == jax_fuzzy_walk.MAX_WALK
+    with pytest.raises(ValueError):
+        fuzzy_walk.fuzzy_walk_ranks(g, labels, np.ones(16), np.arange(16))
+
+
+def test_write_vertex_data_equals_original(tmp_path):
+    gj, labels, _ = _rmat_graph_and_extras(scale=7)
+    results.write_vertex_data(str(tmp_path / "port"), labels, gj.raw_degree, 3)
+    jax_results.write_vertex_data(str(tmp_path / "jax"), labels, gj.raw_degree, 3)
+    assert _db_files_equal(str(tmp_path / "port"), str(tmp_path / "jax")) == [
+        f"0/all_ranks_vertex_data/vertex_data_{r}" for r in range(3)
+    ]
