@@ -80,14 +80,39 @@ NVIDIA GPU:
      --output-vertex-data (the golden tree_s13 result tree, plus the
      vertex data), build_edge_metadata attaches weights, and every
      run_algorithms algorithm gives on the card what it gives with
-     --device cpu (PageRank within rtol 1e-5, atol 1e-6).
+     --device cpu (PageRank within rtol 1e-5, atol 1e-6);
+ 20. the payload variant of gather_accept_or (the mesh LCC superstep)
+     against its twin, exactly: widths 1..1024 (the mesh engine's
+     half-step widths and narrower), n = 0/1/33/1000, alive bits clear,
+     0.5 %, 60 % and all set, pad slots reading the appended zero word,
+     all-zero/all-one masks; and every call of a tree_s13 full-plane
+     search on 4 shards of the card, whose chunk boundaries split rows;
+ 21. the multi-device dryrun on the card: tree_s13 and cycle_s13 with
+     lcc_engine="sharded", nlcc_mode="device", compact=False and
+     num_ranks = n on meshes of 1, 2 and 4 shards of cuda:0: the golden
+     anchors (the cycle in 2 iterations), no host fallback, per-rank
+     counters on every row;
+ 22. the s21 tree search on a 4-shard mesh of the card (the graph of
+     phase 5): the engine build, one warm and three timed searches with
+     the compact continuation (the mesh runs the init superstep, the
+     sub-engine the rest), one warm and one timed on the full plane (every
+     superstep on the mesh), the anchors on every run, the kernels'
+     launches, the per-shard working set and peak device memory; the
+     payload kernel against its twin on every call of one full-plane
+     superstep at the post-init state, timed by CUDA-graph replay beside
+     its bytes bound, and that superstep's eager time;
+ 23. the s21 cycle search on the 4-shard mesh, nlcc_mode="device" (the
+     mesh NLCC routes the tokens), one run: 169/346/56 and 105,906,296,
+     no host fallback, the walk kernels' launches and each constraint's
+     seconds.
 
 Any failure ends the run with a non-zero exit code, and so does a run
 without a CUDA device or without the rest of the repository. The last two
 lines are one JSON object with a record per kernel (launches during the
 main-path search: the s21 tree search for the superstep kernels, the s21
 cycle device search for the walk kernels; largest difference from the
-twin, times and the least time the card could take) and the result line
+twin, times and the least time the card could take; the payload variant's
+launches are those of the phase 22 full-plane search) and the result line
 ``{"ok": true, ...}``.
 
 Usage: python3 chip_smoke.py   (from the repository root; one CUDA card)
@@ -122,11 +147,13 @@ from fuzzypatternmatching_tpu_torch.graph.csr import degree_labels, from_edges
 from fuzzypatternmatching_tpu_torch.ops import _build
 from fuzzypatternmatching_tpu_torch.ops import lcc_superstep as ops
 from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+from fuzzypatternmatching_tpu_torch.parallel import sharded as sharded_lcc
 from fuzzypatternmatching_tpu_torch.pattern.builtin import load_tree_pattern
 from fuzzypatternmatching_tpu_torch.pattern.nonlocal_constraint import (
     load_nonlocal_constraints,
 )
 from fuzzypatternmatching_tpu_torch.pattern.pattern_graph import load_pattern_graph
+from fuzzypatternmatching_tpu_torch.utils.dist import build_mesh
 
 S21_ANCHORS = {
     "active_vertices": 147,
@@ -160,6 +187,9 @@ KERNELS = {
     "pack_alive": "fuzzypatternmatching_tpu/ops/lcc_superstep.py:187",
     "rev_alive_lookup": "fuzzypatternmatching_tpu/ops/lcc_superstep.py:71",
     "gather_accept_or": "fuzzypatternmatching_tpu/ops/lcc_superstep.py:105",
+    # the same Pallas kernel's arithmetic on payload words, as the mesh
+    # superstep (parallel/sharded.py:829-977) wraps it
+    "gather_accept_or_payload": "fuzzypatternmatching_tpu/ops/lcc_superstep.py:105",
     "expand_frontier": "fuzzypatternmatching_tpu/engine/nlcc_device.py:105",
     "forward_winners": "fuzzypatternmatching_tpu/engine/nlcc_device.py:188",
 }
@@ -171,6 +201,11 @@ KERNEL_SOURCES = {
 }
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 DENSITIES = (0.005, 0.6, 1.0)
+# the bucketed engine's kernels (phases 5-7); the payload variant runs on
+# the mesh (phases 20-22)
+BUCKET_KERNELS = ("pack_alive", "rev_alive_lookup", "gather_accept_or")
+PAYLOAD = "gather_accept_or_payload"
+MESH_SHARDS = 4  # the s21 mesh of phases 22-23, on the one card
 
 
 def log(msg):
@@ -329,8 +364,8 @@ def run_s21(g, labels, pattern, constraints, dev, compact):
     log(f"{tag} warm search: {dt:.4f} s, iterations={r.iterations}, "
         f"{summary(r)}, kernel launches {launches}, walk kernel launches "
         f"(nlcc_mode auto) {dict(nf.launches)}")
-    for k, n in launches.items():
-        if n == 0:
+    for k in BUCKET_KERNELS:
+        if launches[k] == 0:
             raise AssertionError(f"{k}: no launch during the s21 search")
     times = []
     for i in range(3):
@@ -1467,6 +1502,232 @@ def run_cli_s13(golden, card="cuda"):
             f"{lines}; phase {time.perf_counter() - t_start:.2f} s")
 
 
+class PayloadCheck:
+    """Wraps the mesh engine's ``gather_accept_or``: every payload call also
+    runs the twin on the same inputs and records the largest difference;
+    with ``keep`` the calls' inputs are kept (for timing)."""
+
+    def __init__(self, errs, keep=False):
+        self.errs, self.keep, self.calls, self.n = errs, keep, [], 0
+
+    def __enter__(self):
+        real = ops.gather_accept_or
+
+        def call(adj, alive_rev, mask, table, *, payload=False):
+            out = real(adj, alive_rev, mask, table, payload=payload)
+            if payload:
+                want = ops.gather_accept_or_payload_reference(adj, mask, table)
+                for g, r in zip(out, want):
+                    self.errs[PAYLOAD] = max(self.errs[PAYLOAD], max_err(g, r))
+                self.n += 1
+                if self.keep:
+                    self.calls.append((adj, mask, table))
+            return out
+
+        sharded_lcc.gather_accept_or = call
+        return self
+
+    def __exit__(self, *exc):
+        sharded_lcc.gather_accept_or = ops.gather_accept_or
+
+
+def split_rows(g, n):
+    """Rows whose edges span a chunk boundary of an n-shard mesh."""
+    ec = max(-(-g.num_edges // n), 1)
+    cuts = np.arange(1, n) * ec
+    cuts = cuts[cuts < g.num_edges]
+    return int(np.sum(g.edge_row[cuts - 1] == g.edge_row[cuts]))
+
+
+def compare_payload_small(dev, golden, errs):
+    """Phase 20: the payload kernel against its twin on seeded inputs, and
+    on every call of a tree_s13 full-plane search on 4 shards."""
+    widths = (1, 2, 4) + tuple(sharded_lcc.WIDTHS)
+    S = 70000
+    for density in (0.0,) + DENSITIES:
+        for w in widths:
+            for n in (0, 1, 33, 1000):
+                rng = np.random.RandomState(n * 17 + w)
+                tv = rng.randint(0, 1 << 16, size=S + 1).astype(np.uint32)
+                tv[rng.rand(S + 1) < 0.3] = 0
+                alive = rng.rand(S + 1) < density
+                payload = tv | (alive.astype(np.uint32) << np.uint32(31))
+                payload[S] = 0
+                adj = rng.randint(0, S + 1, size=(n, w)).astype(np.int32)
+                adj[:, -1] = S  # pad sentinel reads the appended zero word
+                mask = rng.randint(0, 1 << 16, size=n).astype(np.int32)
+                table = torch.from_numpy(payload.view(np.int32)).to(dev)
+                adj_d = torch.from_numpy(adj).to(dev)
+                for m in (mask, np.zeros_like(mask), np.full_like(mask, 0xFFFF)):
+                    m_d = torch.from_numpy(m).to(dev)
+                    got = ops.gather_accept_or(adj_d, None, m_d, table, payload=True)
+                    torch.cuda.synchronize()
+                    want = ops.gather_accept_or_payload_reference(adj_d, m_d, table)
+                    for g, r in zip(got, want):
+                        errs[PAYLOAD] = max(errs[PAYLOAD], max_err(g, r))
+    check_errs(errs, "at small shapes")
+    cfg = golden["configs"]["tree_s13"]
+    g, labels, pattern, constraints = build_config(cfg["scale"], os.path.join(REPO, cfg["corpus"]))
+    n_split = split_rows(g, MESH_SHARDS)
+    if n_split == 0:
+        raise AssertionError("tree_s13 on 4 shards: no row spans a chunk boundary")
+    with PayloadCheck(errs) as chk:
+        r = MatchEngine(
+            g, labels, pattern, constraints, num_ranks=golden["num_ranks"],
+            lcc_engine="sharded", mesh=build_mesh(shards=MESH_SHARDS, device=dev),
+            compact=False,
+        ).run()
+    check_anchors(r, {k: cfg[k] for k in ("active_vertices", "active_edges", "subgraphs")},
+                  "tree_s13 on 4 shards")
+    check_errs(errs, "in the tree_s13 mesh search")
+    log(f"[20] payload kernel equals its twin (widths {widths[0]}..{widths[-1]}, n "
+        f"0/1/33/1000, alive densities {(0.0,) + DENSITIES}, pad words, zero/full "
+        f"masks; and all {chk.n} calls of a tree_s13 full-plane search on "
+        f"{MESH_SHARDS} shards, {n_split} rows split across shards): "
+        f"max_abs_err {errs[PAYLOAD]}")
+
+
+def mesh_dryrun(golden, dev):
+    """Phase 21: the JAX package's dryrun_multichip contract on meshes of
+    1, 2 and 4 shards of the card."""
+    for n in (1, 2, 4):
+        for name in ("tree_s13", "cycle_s13"):
+            cfg = golden["configs"][name]
+            g, labels, pattern, constraints = build_config(
+                cfg["scale"], os.path.join(REPO, cfg["corpus"])
+            )
+            t0 = time.perf_counter()
+            engine = MatchEngine(
+                g, labels, pattern, constraints, lcc_engine="sharded",
+                mesh=build_mesh(shards=n, device=dev), nlcc_mode="device",
+                num_ranks=max(n, 1), compact=False,
+            )
+            nf.reset_launches()
+            r = engine.run()
+            torch.cuda.synchronize()
+            want = {k: cfg[k] for k in ("active_vertices", "active_edges", "subgraphs")}
+            check_anchors(r, want, f"{name} on {n} shards")
+            n_tp = sum(1 for x in r.rows if x.phase == "TP")
+            if (engine.nlcc_fallbacks or n_tp == 0 or r.rows[0].active_vertices == 0
+                    or any(x.per_rank is None for x in r.rows)
+                    or (name == "cycle_s13" and r.iterations != 2)
+                    or nf.launches["expand_frontier"] == 0):
+                raise AssertionError(
+                    f"{name} on {n} shards: fallbacks {engine.nlcc_fallbacks}, {n_tp} TP "
+                    f"rows, iterations {r.iterations}, walk launches {dict(nf.launches)}"
+                )
+            log(f"[21] {name} on {n} shards of {dev}: anchors OK {want}, {r.iterations} "
+                f"iterations, {sum(1 for x in r.rows if x.phase == 'LP')} LP supersteps, "
+                f"{n_tp} TP runs on the mesh, nlcc_fallbacks 0, per_rank on every row, "
+                f"{time.perf_counter() - t0:.3f} s")
+
+
+def payload_bound_ms(calls):
+    """Least time of the payload kernel's calls: each input read once (the
+    index planes, the row masks, and each distinct payload word they
+    gather), each output written once (accept, tn, sendok)."""
+    nbytes = 0
+    for adj, mask, table in calls:
+        n, w = adj.shape
+        nbytes += 5 * n * w + 12 * n + 4 * int(torch.unique(adj).numel())
+    return nbytes / HBM_BYTES_PER_MS, nbytes
+
+
+def run_s21_mesh(g, labels, pattern, constraints, dev, errs):
+    """Phase 22: the s21 tree search on a 4-shard mesh. Returns the payload
+    kernel's (ms, plain ms, bound ms) and its launches per full-plane
+    search."""
+    mesh = build_mesh(shards=MESH_SHARDS, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = MatchEngine(g, labels, pattern, constraints, lcc_engine="sharded", mesh=mesh)
+    torch.cuda.synchronize()
+    lcc = engine.lcc
+    log(f"[22] s21 mesh engine build ({MESH_SHARDS} shards of {dev}): "
+        f"{time.perf_counter() - t0:.3f} s; {lcc.S} ELL slots per shard in "
+        f"{len(lcc.ell_buckets)} buckets, block {lcc.block}, halo sizes H {lcc.halo_h} "
+        f"Hrev {lcc.halo_hrev} K {lcc.halo_k}, per_device_elems {lcc.per_device_elems()}, "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    launches = {}
+    for compact, timed in ((True, 3), (False, 1)):
+        # the same engine on the full plane is what compact=False sets
+        engine._compact_engine = compact
+        what = "compact" if compact else "full plane"
+        ops.reset_launches()
+        nf.reset_launches()
+        with PayloadCheck(errs) as chk:
+            r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 mesh {what} warm")
+        launches[what] = dict(ops.launches)
+        log(f"[22] {what} warm search: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s), "
+            f"iterations={r.iterations}, {summary(r)}, kernel launches {launches[what]} "
+            f"({chk.n} payload calls checked against the twin), walk kernel launches "
+            f"{dict(nf.launches)}")
+        for i in range(timed):
+            r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 mesh {what} run {i}")
+            log(f"[22] {what} timed search {i}: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s, "
+                f"other {dt - lp - tp:.4f} s), {r.traversed_edges / dt / 1e6:.2f} M "
+                f"traversed edges/s, LP rows {len(lp_rows(r))}, host loadavg {os.getloadavg()}")
+    check_errs(errs, "in the s21 mesh searches")
+    need = {"compact": BUCKET_KERNELS, "full plane": (PAYLOAD,)}
+    for what, names in need.items():
+        for k in names:
+            if launches[what][k] == 0:
+                raise AssertionError(f"{k}: no launch during the s21 mesh {what} search")
+    log(f"[22] anchors OK on every run {S21_ANCHORS}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    # one full-plane superstep at the post-init state: every payload call
+    st, _, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
+    with PayloadCheck(errs, keep=True) as chk:
+        lcc._superstep(st.tv, st.alive, st.tp_flag, init=False)
+        torch.cuda.synchronize()
+    check_errs(errs, "at s21 (one mesh superstep)")
+    calls = chk.calls
+    bound, nbytes = payload_bound_ms(calls)
+    k_ms, p_ms, raw = time_pair(
+        lambda: [ops.gather_accept_or(a, None, m, t, payload=True) for a, m, t in calls],
+        lambda: [ops.gather_accept_or_payload_reference(a, m, t) for a, m, t in calls],
+    )
+    step_ms = time_cuda(lambda: lcc._superstep(st.tv, st.alive, st.tp_flag, init=False),
+                        reps=3, graph=False)
+    slots = sum(a.numel() for a, _, _ in calls)
+    sent = sum(int((t[a.long()] < 0).sum()) for a, _, t in calls)
+    log(f"[22] payload kernel, one full-plane superstep at the post-init state "
+        f"({len(calls)} calls: {MESH_SHARDS} shards x {len(lcc.ell_buckets)} buckets, "
+        f"{slots} slots, {sent} reading an alive word): kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
+        f"twin {raw[2]:.4f}/{raw[3]:.4f} ms, bound {bound:.4f} ms ({nbytes} B, bytes), "
+        f"{100 * bound / k_ms:.1f} % of bound; library call: none; the whole mesh "
+        f"superstep (eager, host dispatch included) {step_ms:.3f} ms")
+    del calls, chk, st
+    return (k_ms, p_ms, bound, None), launches["full plane"][PAYLOAD]
+
+
+def run_s21_mesh_cycle(g, labels, dev):
+    """Phase 23: the s21 cycle search on the 4-shard mesh with the mesh
+    NLCC, one run."""
+    pattern = load_pattern_graph(CYCLE_CORPUS)
+    constraints = load_nonlocal_constraints(CYCLE_CORPUS, pattern.vertex_data)
+    t0 = time.perf_counter()
+    engine = MatchEngine(
+        g, labels, pattern, constraints, lcc_engine="sharded",
+        mesh=build_mesh(shards=MESH_SHARDS, device=dev), nlcc_mode="device",
+    )
+    torch.cuda.synchronize()
+    log(f"[23] s21 cycle mesh engine build: {time.perf_counter() - t0:.3f} s")
+    ops.reset_launches()
+    nf.reset_launches()
+    r, dt, lp, tp = timed_search(engine, S21_CYCLE_ANCHORS, "s21 cycle on the mesh")
+    walk = dict(nf.launches)
+    if engine.nlcc_fallbacks or any(walk[k] == 0 for k in WALK_KERNELS):
+        raise AssertionError(f"s21 cycle on the mesh: fallbacks {engine.nlcc_fallbacks}, "
+                             f"walk kernel launches {walk}")
+    log(f"[23] s21 cycle search on {MESH_SHARDS} shards: {dt:.4f} s (LP {lp:.4f} s, "
+        f"TP {tp:.4f} s, other {dt - lp - tp:.4f} s), iterations={r.iterations}, "
+        f"{summary(r)}, anchors OK {S21_CYCLE_ANCHORS}, nlcc_fallbacks 0; kernel launches "
+        f"{dict(ops.launches)}, walk kernel launches {walk}; TP rows (iteration, "
+        f"constraint, seconds, messages) {tp_rows(r)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1556,6 +1817,14 @@ def main() -> int:
 
     run_algorithms_s21(g, dev)
     run_cli_s13(golden)
+
+    t0 = time.perf_counter()
+    compare_payload_small(dev, golden, errs)
+    mesh_dryrun(golden, dev)
+    times[PAYLOAD], launches[PAYLOAD] = run_s21_mesh(g, labels, pattern, constraints, dev, errs)
+    torch.cuda.empty_cache()
+    run_s21_mesh_cycle(g, labels, dev)
+    log(f"[20-23] the multi-device plane's phases took {time.perf_counter() - t0:.1f} s")
 
     bad = sorted(
         k for k in sys.modules

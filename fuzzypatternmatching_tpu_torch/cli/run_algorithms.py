@@ -14,8 +14,11 @@ Usage:
       --walk-labels 1,2,1
 
 ``--device cuda`` (the default) requires a CUDA card; there is no fallback
-to the CPU. ``--sharded`` (the multi-device plane) is not ported and exits
-with an error.
+to the CPU. ``--sharded`` runs BFS, CC, PageRank, k-core and SSSP over a
+mesh (``algorithms/frontier_sharded.py``): one shard per visible CUDA
+device, the first ``--num-devices`` of them (with ``--device cpu``, that
+many shards on the CPU). Neither package has a sharded triangle count:
+``triangles --sharded`` exits with an error.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ import time
 import numpy as np
 import torch
 
-from ..algorithms import frontier
+from ..algorithms import frontier, frontier_sharded
 from ..graph import storage
+from ..utils.dist import build_mesh
 
 
 def main(argv=None):
@@ -47,42 +51,51 @@ def main(argv=None):
                          "(default 0,1,..,len-1 = all-distinct walk)")
     ap.add_argument("-o", "--output", default=None, help="write results here")
     ap.add_argument("--sharded", action="store_true",
-                    help="run distributed over all visible devices (not "
-                         "ported: exits with an error)")
+                    help="run distributed over a mesh of the visible devices "
+                         "(algorithms/frontier_sharded.py; the analog of "
+                         "the reference's all-rank MPI drivers)")
+    ap.add_argument("--num-devices", type=int, default=None)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
-    if args.sharded:
-        ap.error("--sharded: the multi-device plane is not ported")
+    if args.sharded and args.algo == "triangles":
+        ap.error("triangles --sharded: there is no sharded triangle count")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
 
     g, stored_labels, edge_data = storage.load(args.input)
     print(f"opened graph: V={g.num_vertices} E={g.num_edges}")
     dev = args.device
+    if args.sharded:
+        algos = frontier_sharded
+        mesh = build_mesh(num_devices=args.num_devices, device=dev)
+        kw = {"mesh": mesh}
+        print(f"sharded over {mesh.n} devices")
+    else:
+        algos, kw = frontier, {"device": dev}
     t0 = time.time()
     out = None
     if args.algo == "bfs":
-        level, parent = frontier.breadth_first_search(g, args.source, device=dev)
+        level, parent = algos.breadth_first_search(g, args.source, **kw)
         reached = int(np.sum(level < 2**31 - 1))
         print(f"bfs from {args.source}: visited {reached} vertices, "
               f"max level {int(level[level < 2**31 - 1].max())}")
         out = np.stack([level, parent], axis=1)
     elif args.algo == "cc":
-        comp = frontier.connected_components(g, device=dev)
+        comp = algos.connected_components(g, **kw)
         print(f"components: {len(np.unique(comp))}")
         out = comp
     elif args.algo == "pagerank":
-        pr = frontier.pagerank(g, args.damping, args.iterations, device=dev)
+        pr = algos.pagerank(g, args.damping, args.iterations, **kw)
         top = np.argsort(pr)[-5:][::-1]
         print("top-5 pagerank:", [(int(v), float(pr[v])) for v in top])
         out = pr
     elif args.algo == "kcore":
-        alive = frontier.kth_core(g, args.k, device=dev)
+        alive = algos.kth_core(g, args.k, **kw)
         print(f"{args.k}-core size: {int(alive.sum())}")
         out = alive
     elif args.algo == "sssp":
         w = edge_data.astype(np.float64) if edge_data is not None else np.ones(g.num_edges)
-        dist = frontier.sssp(g, args.source, w, device=dev)
+        dist = algos.sssp(g, args.source, w, **kw)
         print(f"sssp from {args.source}: reached {int(np.isfinite(dist).sum())}")
         out = dist
     elif args.algo == "triangles":

@@ -6,7 +6,8 @@ Usage:
       [-v <vertex_data_base>] [-b <backup_db>] [--pattern-set N] \\
       [--output-vertex-data] [-r <output_ranks>] [-x <tds_batch>] \\
       [--max-iterations N] [-e <edge_data_base | db>] [--counting] \\
-      [--lcc-engine {bucketed,flat}] [--no-compact] [--device {cuda,cpu}]
+      [--lcc-engine {bucketed,flat,sharded}] [--shards N] [--mmap] \\
+      [--superstep-timing] [--no-compact] [--device {cuda,cpu}]
 
 ``pattern_dir`` contains numbered subdirectories (the "pattern set"); like
 the reference, only ``<pattern_dir>/0`` is searched by default
@@ -15,10 +16,15 @@ every numbered subdirectory. The graph DB is what ``graph/storage.py``
 writes (``cli.generate_rmat``, ``cli.ingest_edge_list``); ``-b`` restores
 it from a backup first (``storage.transfer``). The result tree is the
 layout of the JAX package's CLI (``io/results.py``). ``-v``, ``-e``,
-``--counting``, ``--lcc-engine`` and ``--output-vertex-data`` behave as the
-JAX package's flags of the same names; ``--lcc-engine sharded`` (the
-multi-device plane) is not ported. ``--device cuda`` (the default) requires
-a CUDA card; there is no fallback to the CPU.
+``--counting``, ``--lcc-engine``, ``--mmap``, ``--superstep-timing`` and
+``--output-vertex-data`` behave as the JAX package's flags of the same
+names. ``--lcc-engine sharded`` runs on a mesh (``utils/dist.build_mesh``):
+one shard per visible CUDA device, or ``--shards N`` shards on one device
+(the port's own flag; with ``--device cpu``, N shards on the CPU).
+``--mmap`` opens the DB shard by shard with no global CSR
+(``storage.open_db``), on the sharded engine only. ``--distributed`` (a
+multi-process run) is not ported and raises. ``--device cuda`` (the
+default) requires a CUDA card; there is no fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..io.labels import resolve_labels
 from ..io.results import write_results, write_vertex_data
 from ..pattern.nonlocal_constraint import load_nonlocal_constraints
 from ..pattern.pattern_graph import load_pattern_graph
+from ..utils.dist import add_distributed_args, build_mesh, init_distributed
 
 
 def _edge_data_from_files(ap, graph, base: str) -> np.ndarray:
@@ -119,23 +126,47 @@ def main(argv=None):
                          "count thresholds from the template "
                          "(label_propagation_pattern_matching_nonunique_"
                          "counting_ee.hpp); works with every --lcc-engine")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="--lcc-engine sharded: this many shards on the one "
+                         "--device (default: one shard per visible CUDA device)")
+    ap.add_argument("--mmap", action="store_true",
+                    help="per-shard open (db_open analog): edge arrays stay "
+                         "memmapped, no global CSR on this host; requires "
+                         "--lcc-engine sharded")
     ap.add_argument("--output-vertex-data", action="store_true",
                     help="dump all_ranks_vertex_data files (beta.cpp:379)")
+    ap.add_argument("--superstep-timing", action="store_true",
+                    help="dispatch one superstep per device call and record "
+                         "real per-step seconds in result_superstep "
+                         "(beta.cpp:592-596); default runs every superstep of "
+                         "an LCC call at once and divides its total")
     ap.add_argument("--no-compact", action="store_true",
                     help="run every LCC superstep on the full graph instead "
                          "of a pruned-subgraph engine after the first "
                          "superstep (results identical)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    add_distributed_args(ap)
     args = ap.parse_args(argv)
-    if args.lcc_engine == "sharded":
-        ap.error("--lcc-engine sharded: the multi-device plane is not ported")
+    if args.mmap and args.lcc_engine != "sharded":
+        ap.error("--mmap requires --lcc-engine sharded")
+    if args.shards is not None and args.lcc_engine != "sharded":
+        ap.error("--shards requires --lcc-engine sharded")
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
+    init_distributed(args)
+    mesh = (
+        build_mesh(shards=args.shards, device=args.device)
+        if args.lcc_engine == "sharded" else None
+    )
 
     if args.backup:
         storage.transfer(args.backup, args.input)
-    graph, stored_labels, stored_edata = storage.load(args.input)
+    if args.mmap:
+        graph = storage.open_db(args.input)
+        stored_labels, stored_edata = graph.labels, None
+    else:
+        graph, stored_labels, stored_edata = storage.load(args.input)
     print(f"opened graph DB: V={graph.num_vertices} E={graph.num_edges}")
     labels = resolve_labels(graph, args.vertex_data, stored_labels)
     if args.vertex_data is None and stored_labels is None:
@@ -197,9 +228,10 @@ def main(argv=None):
         t0 = time.time()
         engine = MatchEngine(
             graph, labels, pattern, constraints, num_ranks=num_ranks,
-            source_batch=args.batch, lcc_engine=args.lcc_engine,
+            source_batch=args.batch, lcc_engine=args.lcc_engine, mesh=mesh,
             counting=args.counting, edge_data=edge_data,
-            compact=not args.no_compact, device=args.device,
+            compact=not args.no_compact, superstep_timing=args.superstep_timing,
+            device=args.device,
         )
         result = engine.run(max_iterations=args.max_iterations)
         print(

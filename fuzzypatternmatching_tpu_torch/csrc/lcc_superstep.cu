@@ -17,7 +17,9 @@
 //   * rev_alive_lookup stages the summary in shared memory and reads a
 //     word from L2 only where the slot's group has an alive bit.
 //   * gather_accept_or reads adj and the tv table only where alive_rev is
-//     set; elsewhere the slot's outputs are zero by definition.
+//     set; elsewhere the slot's outputs are zero by definition. Its payload
+//     variant (the multi-device plane's superstep) reads the alive bit from
+//     bit 31 of the gathered word instead of a separate plane.
 //
 // Plain C entry points (bound with ctypes): each launches on the stream it
 // is given, allocates nothing, does not synchronise, and returns
@@ -254,17 +256,36 @@ rev_alive_kernel(const int32_t* __restrict__ rev,
 //     (w a multiple of 512: one 16-byte alive_rev load and store), a row
 //     takes 1, 2, 4 or 8 warps (partial results meet in shared memory), and
 //     two steps are loaded before either is used.
-//   * otherwise (off the engine's path: other widths, unaligned planes): a
-//     warp per row, its lanes striding 32 slots.
+//   * otherwise (the half-step widths 12, 24, 48, 96 and 192 of the payload
+//     variant; unaligned planes): a warp per row, its lanes striding 32
+//     slots.
+//
+// The payload variant (kPayload = true), for the multi-device plane
+// (fuzzypatternmatching_tpu/parallel/sharded.py:829-977, the superstep's
+// per-bucket loop around the same arithmetic): there is no alive_rev plane.
+// The table holds one word per reverse-edge slot, alive << 31 | tv of the
+// slot's row, and adj indexes it (the halo's revmap; pad slots index an
+// appended zero word). A slot sends where the gathered word has bit 31 set
+// and nonzero low bits; p is then the low 31 bits. The same lane mappings
+// serve both variants: in the payload variant every flag reads as set, so
+// adj and the table are read for every slot. Bound by bytes: per slot 4
+// bytes of adj read and 1 byte of accept written, one table word per
+// distinct slot gathered, 12 bytes per row.
 
 struct RowAcc {
     uint32_t tn = 0;
     uint32_t count = 0;
 };
 
+template <bool kPayload>
 __device__ __forceinline__ uint32_t slot(int32_t a, const int32_t* __restrict__ tv_table,
                                          uint32_t m, RowAcc& acc) {
-    const uint32_t p = static_cast<uint32_t>(__ldg(tv_table + a));
+    uint32_t p = static_cast<uint32_t>(__ldg(tv_table + a));
+    if (kPayload) {
+        // bit 31: the sender's edge is alive; the low bits: its row's tv
+        if ((p & 0x80000000u) == 0) return 0u;
+        p &= 0x7fffffffu;
+    }
     if (p == 0) return 0u;
     acc.count += 1;
     if ((p & m) == 0) return 0u;
@@ -273,6 +294,7 @@ __device__ __forceinline__ uint32_t slot(int32_t a, const int32_t* __restrict__ 
 }
 
 // 4 slots s..s+3 whose alive_rev bytes are f: accept bytes of the 4 slots
+template <bool kPayload>
 __device__ __forceinline__ uint32_t slots4(const int32_t* __restrict__ adj, int64_t s,
                                            uint32_t f,
                                            const int32_t* __restrict__ tv_table,
@@ -280,12 +302,14 @@ __device__ __forceinline__ uint32_t slots4(const int32_t* __restrict__ adj, int6
     if (f == 0) return 0u;
     const int4 a = __ldcs(reinterpret_cast<const int4*>(adj + s));
     uint32_t out = 0;
-    if (f & 0x000000ffu) out |= slot(a.x, tv_table, m, acc);
-    if (f & 0x0000ff00u) out |= slot(a.y, tv_table, m, acc) << 8;
-    if (f & 0x00ff0000u) out |= slot(a.z, tv_table, m, acc) << 16;
-    if (f & 0xff000000u) out |= slot(a.w, tv_table, m, acc) << 24;
+    if (f & 0x000000ffu) out |= slot<kPayload>(a.x, tv_table, m, acc);
+    if (f & 0x0000ff00u) out |= slot<kPayload>(a.y, tv_table, m, acc) << 8;
+    if (f & 0x00ff0000u) out |= slot<kPayload>(a.z, tv_table, m, acc) << 16;
+    if (f & 0xff000000u) out |= slot<kPayload>(a.w, tv_table, m, acc) << 24;
     return out;
 }
+
+constexpr uint32_t kAllSet = 0x01010101u;  // four set flag bytes
 
 // V consecutive slots per lane: the alive_rev load, the gated work and the
 // accept store of one lane's step
@@ -295,35 +319,42 @@ struct Lane;
 template <>
 struct Lane<4> {
     using F = uint32_t;
+    // the payload variant has no alive_rev plane: every flag reads as set
+    template <bool kPayload>
     static __device__ __forceinline__ F load(const uint8_t* p, int64_t s) {
-        return __ldcs(reinterpret_cast<const uint32_t*>(p + s));
+        if constexpr (kPayload) return kAllSet;
+        else return __ldcs(reinterpret_cast<const uint32_t*>(p + s));
     }
     static __device__ __forceinline__ void store(uint8_t* p, int64_t s, F v) {
         __stcs(reinterpret_cast<uint32_t*>(p + s), v);
     }
+    template <bool kPayload>
     static __device__ __forceinline__ F run(const int32_t* __restrict__ adj, int64_t s,
                                             F f, const int32_t* __restrict__ tv,
                                             uint32_t m, RowAcc& acc) {
-        return slots4(adj, s, f, tv, m, acc);
+        return slots4<kPayload>(adj, s, f, tv, m, acc);
     }
 };
 
 template <>
 struct Lane<16> {
     using F = uint4;
+    template <bool kPayload>
     static __device__ __forceinline__ F load(const uint8_t* p, int64_t s) {
-        return __ldcs(reinterpret_cast<const uint4*>(p + s));
+        if constexpr (kPayload) return make_uint4(kAllSet, kAllSet, kAllSet, kAllSet);
+        else return __ldcs(reinterpret_cast<const uint4*>(p + s));
     }
     static __device__ __forceinline__ void store(uint8_t* p, int64_t s, F v) {
         __stcs(reinterpret_cast<uint4*>(p + s), v);
     }
+    template <bool kPayload>
     static __device__ __forceinline__ F run(const int32_t* __restrict__ adj, int64_t s,
                                             F f, const int32_t* __restrict__ tv,
                                             uint32_t m, RowAcc& acc) {
-        return make_uint4(slots4(adj, s, f.x, tv, m, acc),
-                          slots4(adj, s + 4, f.y, tv, m, acc),
-                          slots4(adj, s + 8, f.z, tv, m, acc),
-                          slots4(adj, s + 12, f.w, tv, m, acc));
+        return make_uint4(slots4<kPayload>(adj, s, f.x, tv, m, acc),
+                          slots4<kPayload>(adj, s + 4, f.y, tv, m, acc),
+                          slots4<kPayload>(adj, s + 8, f.z, tv, m, acc),
+                          slots4<kPayload>(adj, s + 12, f.w, tv, m, acc));
     }
 };
 
@@ -335,6 +366,7 @@ __device__ __forceinline__ void store_row(int32_t* __restrict__ tn,
 }
 
 // One 128-slot chunk of the 4 <= w <= 64 kernel: lane's slots s..s+3.
+template <bool kPayload>
 __device__ __forceinline__ void narrow4_chunk(const int32_t* __restrict__ adj,
                                               const int32_t* __restrict__ mask,
                                               const int32_t* __restrict__ tv_table,
@@ -347,7 +379,7 @@ __device__ __forceinline__ void narrow4_chunk(const int32_t* __restrict__ adj,
     RowAcc acc;
     if (s < total) {
         const uint32_t m = f != 0 ? static_cast<uint32_t>(mask[row]) : 0u;
-        Lane<4>::store(accept, s, slots4(adj, s, f, tv_table, m, acc));
+        Lane<4>::store(accept, s, slots4<kPayload>(adj, s, f, tv_table, m, acc));
     }
     for (int off = (1 << w_log2) >> 3; off > 0; off >>= 1) {  // w/4 lanes
         acc.tn |= __shfl_xor_sync(kFull, acc.tn, off);
@@ -356,6 +388,7 @@ __device__ __forceinline__ void narrow4_chunk(const int32_t* __restrict__ adj,
     if (s < total && (s & ((int64_t(1) << w_log2) - 1)) == 0) store_row(tn, sendok, row, acc);
 }
 
+template <bool kPayload>
 __global__ void gather_narrow4_kernel(const int32_t* __restrict__ adj,
                                       const uint8_t* __restrict__ alive_rev,
                                       const int32_t* __restrict__ mask,
@@ -372,14 +405,14 @@ __global__ void gather_narrow4_kernel(const int32_t* __restrict__ adj,
          c < chunks; c += 2 * warps) {
         const int64_t s0 = (c << 7) + lane * 4;
         const int64_t s1 = s0 + (warps << 7);
-        const uint32_t f0 = s0 < total ? Lane<4>::load(alive_rev, s0) : 0u;
-        const uint32_t f1 = s1 < total ? Lane<4>::load(alive_rev, s1) : 0u;
-        narrow4_chunk(adj, mask, tv_table, tn, accept, sendok, s0, f0, total, w_log2);
-        narrow4_chunk(adj, mask, tv_table, tn, accept, sendok, s1, f1, total, w_log2);
+        const uint32_t f0 = s0 < total ? Lane<4>::load<kPayload>(alive_rev, s0) : 0u;
+        const uint32_t f1 = s1 < total ? Lane<4>::load<kPayload>(alive_rev, s1) : 0u;
+        narrow4_chunk<kPayload>(adj, mask, tv_table, tn, accept, sendok, s0, f0, total, w_log2);
+        narrow4_chunk<kPayload>(adj, mask, tv_table, tn, accept, sendok, s1, f1, total, w_log2);
     }
 }
 
-template <int V>
+template <int V, bool kPayload>
 __global__ void gather_wide_kernel(const int32_t* __restrict__ adj,
                                    const uint8_t* __restrict__ alive_rev,
                                    const int32_t* __restrict__ mask,
@@ -408,14 +441,16 @@ __global__ void gather_wide_kernel(const int32_t* __restrict__ adj,
             int32_t j = (sub * 32 + static_cast<int32_t>(lane)) * V;
             for (; j + span < w; j += 2 * span) {
                 const int64_t s0 = base + j, s1 = s0 + span;
-                const typename L::F f0 = L::load(alive_rev, s0);
-                const typename L::F f1 = L::load(alive_rev, s1);
-                L::store(accept, s0, L::run(adj, s0, f0, tv_table, m, acc));
-                L::store(accept, s1, L::run(adj, s1, f1, tv_table, m, acc));
+                const typename L::F f0 = L::template load<kPayload>(alive_rev, s0);
+                const typename L::F f1 = L::template load<kPayload>(alive_rev, s1);
+                L::store(accept, s0, L::template run<kPayload>(adj, s0, f0, tv_table, m, acc));
+                L::store(accept, s1, L::template run<kPayload>(adj, s1, f1, tv_table, m, acc));
             }
             if (j < w) {
                 const int64_t s0 = base + j;
-                L::store(accept, s0, L::run(adj, s0, L::load(alive_rev, s0), tv_table, m, acc));
+                L::store(accept, s0,
+                         L::template run<kPayload>(adj, s0, L::template load<kPayload>(alive_rev, s0),
+                                                   tv_table, m, acc));
             }
         }
         acc.tn = __reduce_or_sync(kFull, acc.tn);
@@ -441,6 +476,7 @@ __global__ void gather_wide_kernel(const int32_t* __restrict__ adj,
     }
 }
 
+template <bool kPayload>
 __global__ void gather_rowwise_kernel(const int32_t* __restrict__ adj,
                                       const uint8_t* __restrict__ alive_rev,
                                       const int32_t* __restrict__ mask,
@@ -459,7 +495,7 @@ __global__ void gather_rowwise_kernel(const int32_t* __restrict__ adj,
         for (int32_t j = lane; j < w; j += 32) {
             const int64_t s = base + j;
             uint32_t a = 0;
-            if (alive_rev[s] != 0) a = slot(adj[s], tv_table, m, acc);
+            if (kPayload || alive_rev[s] != 0) a = slot<kPayload>(adj[s], tv_table, m, acc);
             accept[s] = static_cast<uint8_t>(a);
         }
         acc.tn = __reduce_or_sync(kFull, acc.tn);
@@ -523,10 +559,12 @@ extern "C" int fpm_rev_alive_lookup(const void* rev, const void* words,
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int fpm_gather_accept_or(const void* adj, const void* alive_rev,
-                                    const void* mask, const void* tv_table,
-                                    void* tn, void* accept, void* sendok,
-                                    int64_t n, int32_t w, void* stream) {
+namespace {
+
+template <bool kPayload>
+int launch_gather(const void* adj, const void* alive_rev, const void* mask,
+                  const void* tv_table, void* tn, void* accept, void* sendok, int64_t n,
+                  int32_t w, void* stream) {
     if (n <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     auto* a = static_cast<const int32_t*>(adj);
@@ -539,24 +577,44 @@ extern "C" int fpm_gather_accept_or(const void* adj, const void* alive_rev,
     const bool pow2 = (w & (w - 1)) == 0;
     int w_log2 = 0;
     while ((1 << w_log2) < w) ++w_log2;
-    const bool vec4 = aligned(adj, 16) && aligned(alive_rev, 4) && aligned(accept, 4);
-    const bool vec16 = aligned(adj, 16) && aligned(alive_rev, 16) && aligned(accept, 16);
+    // the payload variant reads no alive_rev plane
+    const bool vec4 = aligned(adj, 16) && (kPayload || aligned(alive_rev, 4)) && aligned(accept, 4);
+    const bool vec16 =
+        aligned(adj, 16) && (kPayload || aligned(alive_rev, 16)) && aligned(accept, 16);
     if (pow2 && w >= 4 && w <= 64 && vec4) {
-        gather_narrow4_kernel<<<grid_for((n * w + 127) / 128, kThreads / 32), kThreads, 0,
-                                st>>>(a, ar, m, t, o_tn, o_acc, o_cnt, n, w_log2);
+        gather_narrow4_kernel<kPayload><<<grid_for((n * w + 127) / 128, kThreads / 32),
+                                          kThreads, 0, st>>>(a, ar, m, t, o_tn, o_acc, o_cnt,
+                                                             n, w_log2);
     } else if (w % 512 == 0 && vec16) {
         // 16 slots per lane; a row takes about w / 1024 warps (1..8), so
         // that each lane has two steps in flight
         const int warps_per_row = w >= 8192 ? 8 : w >= 4096 ? 4 : w >= 2048 ? 2 : 1;
-        gather_wide_kernel<16><<<grid_for(n, (kThreads / 32) / warps_per_row), kThreads,
-                                 0, st>>>(a, ar, m, t, o_tn, o_acc, o_cnt, n, w,
-                                          warps_per_row);
+        gather_wide_kernel<16, kPayload><<<grid_for(n, (kThreads / 32) / warps_per_row),
+                                           kThreads, 0, st>>>(a, ar, m, t, o_tn, o_acc, o_cnt,
+                                                              n, w, warps_per_row);
     } else if (w % 128 == 0 && vec4) {
-        gather_wide_kernel<4><<<grid_for(n, kThreads / 32), kThreads, 0, st>>>(
+        gather_wide_kernel<4, kPayload><<<grid_for(n, kThreads / 32), kThreads, 0, st>>>(
             a, ar, m, t, o_tn, o_acc, o_cnt, n, w, 1);
     } else {
-        gather_rowwise_kernel<<<grid_for(n, kThreads / 32), kThreads, 0, st>>>(
+        gather_rowwise_kernel<kPayload><<<grid_for(n, kThreads / 32), kThreads, 0, st>>>(
             a, ar, m, t, o_tn, o_acc, o_cnt, n, w);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int fpm_gather_accept_or(const void* adj, const void* alive_rev,
+                                    const void* mask, const void* tv_table,
+                                    void* tn, void* accept, void* sendok,
+                                    int64_t n, int32_t w, void* stream) {
+    return launch_gather<false>(adj, alive_rev, mask, tv_table, tn, accept, sendok, n, w,
+                                stream);
+}
+
+extern "C" int fpm_gather_accept_or_payload(const void* adj, const void* mask,
+                                            const void* payload, void* tn, void* accept,
+                                            void* sendok, int64_t n, int32_t w,
+                                            void* stream) {
+    return launch_gather<true>(adj, nullptr, mask, payload, tn, accept, sendok, n, w, stream);
 }

@@ -8,15 +8,21 @@ engine (``engine/lcc_bucketed.py``) with the compact continuation — after
 the global init superstep the remaining supersteps run on an engine rebuilt
 over the pruned subgraph, on the same device — or on the flat engine
 (``engine/lcc.py``), whose state the driver exchanges as E-sized global
-arrays. Each NLCC constraint runs on the device engine
-(``engine/nlcc_device.py``) or the host engine (``engine/nlcc.py``, the
-port's copy of the JAX package's), placed by ``nlcc_mode``; the placement
-never changes a result.
+arrays, or on a mesh of shards (``lcc_engine="sharded"`` or ``mesh=``:
+``parallel/sharded.py``, with the compact continuation on the mesh's first
+device). Each NLCC constraint runs on the device engine
+(``engine/nlcc_device.py``; on a mesh ``parallel/nlcc_sharded.py``) or the
+host engine (``engine/nlcc.py``, the port's copy of the JAX package's),
+placed by ``nlcc_mode``; the placement never changes a result.
 
 Counting-LCC (``counting=True``) and edge-metadata matching
 (``edge_data``, active only when the pattern carries ``pattern_edge_data``
-too) run on both LCC engines; with metadata every constraint runs on the
-host NLCC engine, whose walks filter each hop by the edge's metadata.
+too) run on every LCC engine; with metadata a constraint runs on the host
+NLCC engine or the mesh NLCC, whose walks filter each hop by the edge's
+metadata, never on the single-device ``DeviceNlcc``.
+
+``superstep_timing=True`` runs one LCC call per superstep and records each
+one's own seconds (the reference's per-step brackets, beta.cpp:592-596).
 """
 
 from __future__ import annotations
@@ -58,24 +64,37 @@ class MatchEngine:
         constraints: list[NonLocalConstraint],
         num_ranks: int = 1,
         lcc_engine: str = "bucketed",
+        mesh=None,
         source_batch: int = 1 << 16,
         nlcc_mode: str = "auto",
         nlcc_device_min: int = NLCC_DEVICE_MIN,
         counting: bool = False,
         edge_data: np.ndarray | None = None,
         compact: bool = True,
+        superstep_timing: bool = False,
         *,
         device: torch.device | str = "cuda",
     ):
-        if lcc_engine not in ("bucketed", "flat"):
+        if lcc_engine not in ("bucketed", "flat", "sharded"):
             raise ValueError(
-                f"lcc_engine={lcc_engine!r}: only 'bucketed' and 'flat' are ported"
+                f"lcc_engine={lcc_engine!r}: not bucketed, flat or sharded"
             )
         if nlcc_mode not in ("auto", "device", "host"):
             raise ValueError(f"nlcc_mode={nlcc_mode!r}: not auto, device or host")
-        if not isinstance(graph, Graph):
-            raise TypeError("MatchEngine needs a materialized Graph (storage.load)")
-        self.device = torch.device(device)
+        sharded = lcc_engine == "sharded" or mesh is not None
+        if not sharded and not isinstance(graph, Graph):
+            raise TypeError(
+                "a lazily-opened GraphDb (storage.open_db) requires "
+                "lcc_engine='sharded'; other engines need storage.load"
+            )
+        if sharded and mesh is None:
+            from ..utils.dist import build_mesh
+
+            mesh = build_mesh(device=device)
+        # the mesh's first device hosts the driver's own device work (the
+        # compact sub-engine)
+        self.device = mesh.devices[0] if sharded else torch.device(device)
+        self.superstep_timing = superstep_timing
         self.graph = graph
         self.labels = np.asarray(labels, dtype=np.uint64)
         self.pattern = pattern
@@ -95,7 +114,14 @@ class MatchEngine:
             code = np.where(vals[pos] == ed, pos, len(vals)).astype(np.int64)
             self._meta = (vals, allow, code)
         em = None if self._meta is None else (self._meta[1], self._meta[2])
-        if lcc_engine == "bucketed":
+        if sharded:
+            from ..parallel.sharded import ShardedLccEngine
+
+            self.lcc = ShardedLccEngine(
+                graph, self.labels, pattern, mesh=mesh, num_ranks=num_ranks,
+                edge_meta=em, counting=counting,
+            )
+        elif lcc_engine == "bucketed":
             self.lcc = BucketedLccEngine(
                 graph, self.labels, pattern, device=self.device,
                 num_ranks=num_ranks, edge_meta=em, counting=counting,
@@ -105,8 +131,8 @@ class MatchEngine:
                 graph, self.labels, pattern, num_ranks=num_ranks,
                 counting=counting, edge_meta=em, device=self.device,
             )
-        # the bucketed engine's states hold the alive set in slot space
-        # (``alive_pairs``); the flat engine's are E-sized global arrays
+        # the bucketed and mesh engines' states hold the alive set in slot
+        # space (``alive_pairs``); the flat engine's are E-sized global arrays
         self._fast = hasattr(self.lcc, "alive_pairs")
         # NLCC placement: "device" runs every constraint on the device
         # engine, "host" on the host engine, "auto" moves a constraint to
@@ -114,11 +140,17 @@ class MatchEngine:
         # ``nlcc_device_min`` lanes
         self.nlcc_mode = nlcc_mode
         self.nlcc_device_min = nlcc_device_min
-        self._dev_nlcc = (
-            DeviceNlcc(graph.num_vertices, num_ranks=num_ranks, device=self.device)
-            if nlcc_mode != "host" and graph.num_vertices < (1 << 31)
-            else None
-        )
+        self._dev_nlcc = None
+        if nlcc_mode != "host" and graph.num_vertices < (1 << 31):
+            if sharded:
+                # on a mesh the token walks run on its shards
+                from ..parallel.nlcc_sharded import ShardedNlcc
+
+                self._dev_nlcc = ShardedNlcc(graph.num_vertices, mesh, num_ranks=num_ranks)
+            else:
+                self._dev_nlcc = DeviceNlcc(
+                    graph.num_vertices, num_ranks=num_ranks, device=self.device
+                )
         # the JAX API's count of device runs redone on the host; the device
         # engine sizes every frontier exactly, so nothing is redone
         self.nlcc_fallbacks = 0
@@ -132,7 +164,9 @@ class MatchEngine:
                 | (pattern.min_optional_edge_count > 0)
             )
         )
-        self._compact_engine = compact and self._fast
+        # the compact closure needs the full edge_row/cols arrays, which a
+        # lazily-opened GraphDb lacks
+        self._compact_engine = compact and self._fast and isinstance(graph, Graph)
         # (fp, keys, union, u_rows_uniq, alive_sub_eids, sub): the compact
         # closure and its engine, keyed on the exact alive set
         self._sub_cache: tuple | None = None
@@ -147,7 +181,7 @@ class MatchEngine:
     def _edge_index(self, v: int, u: int) -> int:
         """Edge slot of (v, u): binary search within v's sorted CSR row."""
         lo, hi = int(self.graph.row_ptr[v]), int(self.graph.row_ptr[v + 1])
-        row_cols = self.graph.cols[lo:hi]
+        row_cols = self.graph.cols_range(lo, hi)
         i = int(np.searchsorted(row_cols, u))
         if i < hi - lo and row_cols[i] == u:
             return lo + i
@@ -168,6 +202,23 @@ class MatchEngine:
         """One LCC call. ``tp_mark_eids`` (original CSR edge ids carrying
         token-passing success marks) are translated into the pruned
         subgraph's edge ids, so the compact continuation runs across them."""
+        if self.superstep_timing:
+            # one LCC call per superstep, each timed on its own
+            rows, died_any, first = [], False, global_init
+            for _ in range(self.pattern.diameter):
+                self._sync()
+                t0 = time.perf_counter()
+                state, r1, d1 = self.lcc.lcc_call(state, first, n_steps=1)
+                self._sync()
+                dt = time.perf_counter() - t0
+                died_any = died_any or d1
+                first = False
+                for row in r1:
+                    rows.append((row, dt))
+            for s, ((av, ae, msgs, per_rank), dt) in enumerate(rows):
+                result.rows.append(PhaseRow(itr, "LP", s, av, ae, msgs, dt, per_rank))
+                result.traversed_edges += msgs
+            return state, died_any
         if not (self._compact_ok and self._compact_engine):
             t0 = time.perf_counter()
             state, rows, died = self.lcc.lcc_call(state, global_init)
@@ -261,6 +312,13 @@ class MatchEngine:
         a2r, a2c = sub.alive_pairs(sub_state)
         return self._state_from_pairs(tv2, a2r, a2c), rows, died
 
+    def _sync(self) -> None:
+        """Wait for the LCC engine's devices before a clock read."""
+        devices = self.lcc.mesh.devices if hasattr(self.lcc, "mesh") else [self.device]
+        for dev in set(devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
     def _emit_lp_rows(self, rows, dt, itr, result):
         for s, (av, ae, msgs, per_rank) in enumerate(rows):
             result.rows.append(PhaseRow(itr, "LP", s, av, ae, msgs, dt, per_rank))
@@ -286,8 +344,8 @@ class MatchEngine:
         fixed costs (launches and host reads per hop)."""
         if self._dev_nlcc is None or self.nlcc_mode == "host":
             return False
-        if self._meta is not None:
-            # the metadata hop filters run in the host engine only
+        if self._meta is not None and not hasattr(self._dev_nlcc, "mesh"):
+            # the metadata hop filters run in the host or mesh NLCC engines
             return False
         if self.nlcc_mode == "device":
             return True
@@ -310,9 +368,12 @@ class MatchEngine:
         forwarded.reset_for(c, self.labels, tv, g.num_vertices)
         if use_dev:
             fn = self._dev_nlcc.run_tds if c.is_tds else self._dev_nlcc.run_nem
+            kw = {}
+            if hasattr(self._dev_nlcc, "mesh"):
+                kw = {"hopc": hopc, "source_batch": self.source_batch}
             return fn(
                 acsr, self.labels, tv, c, g.num_vertices,
-                forwarded=forwarded, candidates=cand,
+                forwarded=forwarded, candidates=cand, **kw,
             )
         if c.is_tds:
             return run_tds(
@@ -326,7 +387,7 @@ class MatchEngine:
             candidates=cand,
         )
 
-    def _alive_csr(self, arow, acol, alive, tv) -> AliveCsr:
+    def _alive_csr(self, arow, acol, alive, tv, state) -> AliveCsr:
         """The pruned adjacency the NLCC walks expand: from the alive pairs
         (bucketed engine) or the E-sized alive flags (flat engine), with
         each edge's metadata code in metadata mode."""
@@ -338,10 +399,15 @@ class MatchEngine:
             )
         pair_meta = None
         if self._meta is not None:
-            keys = arow.astype(np.uint64) * np.uint64(g.num_vertices) + acol.astype(
-                np.uint64
-            )
-            pair_meta = self._meta[2][np.searchsorted(self._edge_keys_cached(), keys)]
+            if hasattr(self.lcc, "alive_edge_ids"):
+                # mesh engine: its edge ids are the pair order (a lazily
+                # opened GraphDb has no E-sized key array)
+                pair_meta = self._meta[2][self.lcc.alive_edge_ids(state)]
+            else:
+                keys = arow.astype(np.uint64) * np.uint64(g.num_vertices) + acol.astype(
+                    np.uint64
+                )
+                pair_meta = self._meta[2][np.searchsorted(self._edge_keys_cached(), keys)]
         return AliveCsr.from_pairs(arow, acol, tv != 0, g.num_vertices, meta=pair_meta)
 
     def _host_state(self, state):
@@ -390,7 +456,7 @@ class MatchEngine:
                 for pl, c in enumerate(self.constraints):
                     t0 = time.perf_counter()
                     if acsr is None:
-                        acsr = self._alive_csr(arow, acol, alive, tv)
+                        acsr = self._alive_csr(arow, acol, alive, tv, state)
                     out = self._run_constraint(pl, c, acsr, tv, forwarded)
                     if c.is_tds:
                         subs = result.subgraphs.setdefault(pl, [])

@@ -84,6 +84,22 @@ def keep_mask_per_i(tn_list: list, mand: list, opt: list, opt_min: list):
     return keep
 
 
+def segment_or(values: torch.Tensor, seg_id: torch.Tensor, n_seg: int):
+    """OR-combine int32 16-bit values per segment (split-hub partials)
+    through a max over bit planes."""
+    shifts = torch.arange(
+        MAX_TEMPLATE_VERTICES, dtype=torch.int32, device=values.device
+    )
+    planes = (values[:, None] >> shifts) & 1
+    seg = torch.zeros(
+        (n_seg, MAX_TEMPLATE_VERTICES), dtype=torch.int32,
+        device=values.device,
+    ).scatter_reduce(
+        0, seg_id[:, None].expand_as(planes), planes, "amax"
+    )
+    return (seg << shifts).sum(dim=1, dtype=torch.int32)
+
+
 @dataclass
 class Bucket:
     rows: np.ndarray  # vertex id per row [n] (repeats for split hubs)
@@ -336,22 +352,6 @@ class BucketedLccEngine:
             keep = keep | (ok.to(torch.int32) << i)
         return keep
 
-    @staticmethod
-    def _segment_or(values: torch.Tensor, seg_id: torch.Tensor, n_seg: int):
-        """OR-combine int32 16-bit values per segment (split-hub partials)
-        through a max over bit planes."""
-        shifts = torch.arange(
-            MAX_TEMPLATE_VERTICES, dtype=torch.int32, device=values.device
-        )
-        planes = (values[:, None] >> shifts) & 1
-        seg = torch.zeros(
-            (n_seg, MAX_TEMPLATE_VERTICES), dtype=torch.int32,
-            device=values.device,
-        ).scatter_reduce(
-            0, seg_id[:, None].expand_as(planes), planes, "amax"
-        )
-        return (seg << shifts).sum(dim=1, dtype=torch.int32)
-
     def _superstep(self, tv, alive, tp_flag, *, init: bool):
         """One superstep over every bucket. Returns (tv, alive, tp_flag,
         stats) with stats = [av per rank | ae per rank | msg per rank |
@@ -402,7 +402,7 @@ class BucketedLccEngine:
                     p_i = p & allow_i
                     tn_i = row_or(p_i)
                     tn_list.append(
-                        self._segment_or(tn_i, d.seg_id, n_seg) if split else tn_i
+                        segment_or(tn_i, d.seg_id, n_seg) if split else tn_i
                     )
                     if self.counting:
                         acc.append(p_i != 0)
@@ -426,7 +426,7 @@ class BucketedLccEngine:
                     )
                     if self.counting:
                         pa = torch.where(accept, tv_table[d.adj], 0)
-                tn = self._segment_or(tn_rows, d.seg_id, n_seg) if split else tn_rows
+                tn = segment_or(tn_rows, d.seg_id, n_seg) if split else tn_rows
                 in_map = tn != 0
                 new_tv_seg = tv_seg & self._keep_mask(tn)
                 if self.counting:

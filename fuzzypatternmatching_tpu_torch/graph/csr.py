@@ -32,6 +32,24 @@ class Graph:
     def num_edges(self) -> int:
         return int(self.cols.shape[0])
 
+    # -- edge-range accessor protocol (shared with storage.GraphDb, which
+    # serves the same reads from per-shard memmaps without a global CSR) --
+
+    def cols_range(self, lo: int, hi: int) -> np.ndarray:
+        return self.cols[lo:hi]
+
+    def rev_range(self, lo: int, hi: int) -> np.ndarray:
+        return self.rev_edge[lo:hi]
+
+    def cols_at(self, ids: np.ndarray) -> np.ndarray:
+        return self.cols[ids]
+
+    def edge_row_at(self, ids: np.ndarray) -> np.ndarray:
+        return self.edge_row[ids]
+
+    def edge_row_range(self, lo: int, hi: int) -> np.ndarray:
+        return self.edge_row[lo:hi]
+
 
 def from_edges(
     src: np.ndarray, dst: np.ndarray, num_vertices: int | None = None,

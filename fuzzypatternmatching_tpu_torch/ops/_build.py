@@ -40,6 +40,9 @@ _SIGNATURES = {
         "fpm_gather_accept_or": [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P,
         ],
+        "fpm_gather_accept_or_payload": [
+            _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P,
+        ],
     },
     "nlcc_frontier": {
         "fpm_expand_count": [

@@ -12,7 +12,9 @@ nvcc at first use (``ops/_build.py``):
     read through the summary;
   * ``gather_accept_or``: tv-table gather, accept test against the row's
     pattern-adjacency mask, row OR and per-row send count, for one ELL
-    bucket.
+    bucket; with ``payload=True`` the variant of the multi-device plane,
+    whose table holds ``alive << 31 | tv`` per reverse-edge slot and which
+    takes no ``alive_rev``.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain torch twin (``*_reference``), a CUDA tensor to the kernel. On the
@@ -31,7 +33,10 @@ from typing import NamedTuple
 
 import torch
 
-launches = {"pack_alive": 0, "rev_alive_lookup": 0, "gather_accept_or": 0}
+launches = {
+    "pack_alive": 0, "rev_alive_lookup": 0, "gather_accept_or": 0,
+    "gather_accept_or_payload": 0,
+}
 
 # The group summary must fit this many bytes of shared memory in the lookup
 # kernel (csrc/lcc_superstep.cu, kMaxSummaryBytes).
@@ -213,21 +218,46 @@ def gather_accept_or_reference(
     return tn, accept, send_ok.sum(dim=1, dtype=torch.int32)
 
 
+def gather_accept_or_payload_reference(
+    adj: torch.Tensor, adj_mask_rows: torch.Tensor, payload: torch.Tensor
+):
+    """Plain twin of :func:`gather_accept_or` with ``payload=True`` (the
+    multi-device superstep's formula, fuzzypatternmatching_tpu/parallel/
+    sharded.py:900-941). Bit 31 of an int32 word is its sign bit: the alive
+    test ``p_raw >= 0x80000000`` of the uint32 words is ``p_raw < 0``."""
+    p_raw = payload[adj]
+    p = p_raw & 0x7FFFFFFF
+    send_ok = (p != 0) & (p_raw < 0)
+    p = torch.where(send_ok, p, 0)
+    accept = (p & adj_mask_rows[:, None]) != 0
+    tn = row_or(torch.where(accept, p, 0))
+    return tn, accept, send_ok.sum(dim=1, dtype=torch.int32)
+
+
 def gather_accept_or(
     adj: torch.Tensor,
-    alive_rev: torch.Tensor,
+    alive_rev: torch.Tensor | None,
     adj_mask_rows: torch.Tensor,
     tv_table: torch.Tensor,
+    *,
+    payload: bool = False,
 ):
     """Fused tv-gather + accept + row OR for one ELL bucket.
 
     adj [n, w] int32 (pad slots index tv_table's zero entry); alive_rev
     [n, w] bool; adj_mask_rows [n] int32 accept mask per row; tv_table
     [V + 1] int32 with ``tv_table[V] == 0``. Returns (tn [n] int32,
-    accept [n, w] bool, sendok [n] int32)."""
+    accept [n, w] bool, sendok [n] int32).
+
+    ``payload=True``: ``alive_rev`` is None and ``tv_table`` is the payload
+    table, int32 words ``alive << 31 | tv``; a slot sends where its word
+    has bit 31 and nonzero low bits, with p the low bits (pad slots index
+    a zero word)."""
+    if payload != (alive_rev is None):
+        raise ValueError("gather_accept_or: alive_rev is None exactly when payload=True")
     if (
         adj.dtype != torch.int32
-        or alive_rev.dtype != torch.bool
+        or (alive_rev is not None and alive_rev.dtype != torch.bool)
         or adj_mask_rows.dtype != torch.int32
         or tv_table.dtype != torch.int32
     ):
@@ -236,13 +266,16 @@ def gather_accept_or(
             "adj_mask_rows and int32 tv_table"
         )
     n, w = adj.shape
-    if alive_rev.shape != adj.shape or adj_mask_rows.shape != (n,):
+    if (alive_rev is not None and alive_rev.shape != adj.shape) or adj_mask_rows.shape != (n,):
         raise ValueError("gather_accept_or: shapes of adj, alive_rev, mask differ")
     if _on_cpu("gather_accept_or", adj):
+        if payload:
+            return gather_accept_or_payload_reference(adj, adj_mask_rows, tv_table)
         return gather_accept_or_reference(adj, alive_rev, adj_mask_rows, tv_table)
     from . import _build
 
-    _check_cuda("gather_accept_or", adj, alive_rev, adj_mask_rows, tv_table)
+    planes = [adj, adj_mask_rows, tv_table] + ([] if payload else [alive_rev])
+    _check_cuda("gather_accept_or", *planes)
     dev = adj.device
     tn = torch.empty(n, dtype=torch.int32, device=dev)
     accept = torch.empty((n, w), dtype=torch.bool, device=dev)
@@ -250,10 +283,19 @@ def gather_accept_or(
     if n == 0:
         return tn, accept, sendok
     lib = _build.library("lcc_superstep")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if payload:
+        status = lib.fpm_gather_accept_or_payload(
+            adj.data_ptr(), adj_mask_rows.data_ptr(), tv_table.data_ptr(),
+            tn.data_ptr(), accept.data_ptr(), sendok.data_ptr(), n, w, stream,
+        )
+        _build.check(status, "gather_accept_or_payload")
+        launches["gather_accept_or_payload"] += 1
+        return tn, accept, sendok
     status = lib.fpm_gather_accept_or(
         adj.data_ptr(), alive_rev.data_ptr(), adj_mask_rows.data_ptr(),
         tv_table.data_ptr(), tn.data_ptr(), accept.data_ptr(),
-        sendok.data_ptr(), n, w, torch.cuda.current_stream(dev).cuda_stream,
+        sendok.data_ptr(), n, w, stream,
     )
     _build.check(status, "gather_accept_or")
     launches["gather_accept_or"] += 1

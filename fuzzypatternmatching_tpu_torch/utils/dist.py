@@ -1,15 +1,26 @@
-"""Multi-process command-line flags — the environment.hpp plumbing.
+"""Multi-process command-line flags and the device mesh — the
+environment.hpp plumbing.
 
-The port's own copy of ``add_distributed_args`` from
-``fuzzypatternmatching_tpu/utils/dist.py``: the same four flags. The graph
-build CLIs (``generate_rmat``, ``ingest_edge_list``) read
-``--num-processes`` and ``--process-id`` and exchange through the shared
-output directory with file barriers (``graph/build.py``); they start no
-process group. Starting one, and the device mesh, belong to the
-multi-device plane, which the port does not have yet.
+The port of ``fuzzypatternmatching_tpu/utils/dist.py``:
+
+* ``add_distributed_args``: the same four flags. The graph build CLIs
+  (``generate_rmat``, ``ingest_edge_list``) read ``--num-processes`` and
+  ``--process-id`` and exchange through the shared output directory with
+  file barriers (``graph/build.py``); they start no process group.
+* ``init_distributed``: a multi-process search (``--distributed``, one
+  process per card joined by ``torch.distributed``) is not ported; it
+  raises.
+* ``build_mesh``: the 1-D mesh of the multi-device plane
+  (``parallel/mesh.py``), in this one process: one shard per visible CUDA
+  device, or ``shards`` shards on one device. The JAX package's 2-D
+  ("host", "chip") mesh has no caller in the port.
 """
 
 from __future__ import annotations
+
+import torch
+
+from ..parallel.mesh import Mesh
 
 
 def add_distributed_args(ap) -> None:
@@ -31,3 +42,37 @@ def add_distributed_args(ap) -> None:
         "--process-id", type=int, default=None,
         help="this process's id (default: 0)",
     )
+
+
+def init_distributed(args) -> None:
+    """Join a multi-process run. Single-process runs skip it; a
+    multi-process search is not ported."""
+    if getattr(args, "distributed", False):
+        raise NotImplementedError(
+            "--distributed: multi-process runs are not ported (the mesh "
+            "runs its shards in one process)"
+        )
+
+
+def build_mesh(
+    num_devices: int | None = None, shards: int | None = None,
+    device: torch.device | str = "cuda",
+) -> Mesh:
+    """The graph-partition mesh. By default one shard per visible CUDA
+    device (the first ``num_devices`` of them); with ``shards``, that many
+    shards on the one ``device``. ``device="cpu"`` puts every shard on the
+    CPU (one shard unless ``shards`` says more)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev}: no CUDA device is available")
+    if shards is not None:
+        if shards < 1:
+            raise ValueError(f"shards={shards}: need at least one")
+        return Mesh([dev] * shards)
+    if dev.type != "cuda":
+        return Mesh([dev] * (num_devices or 1))
+    count = torch.cuda.device_count()
+    n = count if num_devices is None else num_devices
+    if not 1 <= n <= count:
+        raise ValueError(f"num_devices={num_devices}: {count} CUDA devices are visible")
+    return Mesh([torch.device("cuda", i) for i in range(n)])

@@ -148,7 +148,7 @@ def test_default_device_is_the_card(golden_meta):
         MatchEngine(g, labels, pattern, constraints)
 
 
-@pytest.mark.parametrize("kw", [{"nlcc_mode": "mesh"}, {"lcc_engine": "sharded"}])
+@pytest.mark.parametrize("kw", [{"nlcc_mode": "mesh"}, {"lcc_engine": "dense"}])
 def test_unported_options_raise(golden_meta, kw):
     g, labels, pattern, constraints = _config(golden_meta, "tree_s11")
     with pytest.raises(ValueError):

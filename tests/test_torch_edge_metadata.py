@@ -268,8 +268,8 @@ def test_cli_edge_metadata_conflict_and_unmatched(tmp_path, capsys):
     (tmp_path / "part").write_text("0 1 5\n")
     run_pattern_matching.main(base + [str(tmp_path / "part")])
     assert "WARNING: 6 graph edges have no metadata row" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        run_pattern_matching.main(base[:-1] + ["--lcc-engine", "sharded"])
+    with pytest.raises(SystemExit):  # --mmap needs the sharded engine
+        run_pattern_matching.main(base[:-1] + ["--mmap"])
 
 
 # ------------------------------------------------- lazy bucketed state

@@ -72,6 +72,11 @@ def test_every_port_module_is_listed():
         "fuzzypatternmatching_tpu_torch.graph.build",
         "fuzzypatternmatching_tpu_torch.utils.dist",
         "fuzzypatternmatching_tpu_torch.utils.log_step",
+        "fuzzypatternmatching_tpu_torch.parallel.mesh",
+        "fuzzypatternmatching_tpu_torch.parallel.sharded",
+        "fuzzypatternmatching_tpu_torch.parallel.nlcc_sharded",
+        "fuzzypatternmatching_tpu_torch.algorithms.frontier_sharded",
+        "fuzzypatternmatching_tpu_torch.cli.comm_rate_test",
     ):
         assert name in mods
 

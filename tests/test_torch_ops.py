@@ -244,8 +244,13 @@ def test_twins_count_no_launches_on_cpu():
         torch.from_numpy(adj), torch.from_numpy(alive_rev),
         torch.from_numpy(mask), torch.from_numpy(tv),
     )
+    ops.gather_accept_or(
+        torch.from_numpy(adj), None, torch.from_numpy(mask), torch.from_numpy(tv),
+        payload=True,
+    )
     assert ops.launches == {
         "pack_alive": 0, "rev_alive_lookup": 0, "gather_accept_or": 0,
+        "gather_accept_or_payload": 0,
     }
 
 
@@ -346,6 +351,98 @@ def test_gather_accept_or_every_lane_mapping_on_cuda(cuda_device, n, w, offset):
     got = ops.gather_accept_or(*dev_args)
     torch.cuda.synchronize()
     for g, r in zip(got, ops.gather_accept_or_reference(*args)):
+        assert torch.equal(g.cpu(), r)
+
+
+# -- the payload variant of gather_accept_or (the mesh LCC superstep) ---------
+
+# the mesh engine's ELL widths (parallel/sharded.py WIDTHS): every lane mapping
+PAYLOAD_WIDTHS = [8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024]
+
+
+def _payload_inputs(rng, n, w, S=700, density=0.6):
+    """Payload words alive << 31 | tv (uint32 [S + 1], the last a zero pad
+    word), gather indices with pad sentinels S, and row masks."""
+    tv = rng.randint(0, 1 << 16, size=S + 1).astype(np.uint32)
+    tv[rng.rand(S + 1) < 0.3] = 0
+    alive = rng.rand(S + 1) < density
+    payload = tv | (alive.astype(np.uint32) << np.uint32(31))
+    payload[S] = 0
+    adj = rng.randint(0, S + 1, size=(n, w)).astype(np.int32)
+    adj[:, -1] = S  # pad sentinel reads the appended zero word
+    mask = rng.randint(0, 1 << 16, size=n).astype(np.int32)
+    return payload, adj, mask
+
+
+def _payload_args(payload, adj, mask):
+    return (torch.from_numpy(adj), torch.from_numpy(mask),
+            torch.from_numpy(payload.view(np.int32)))
+
+
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("n, w", [(n, w) for w in (8, 12, 24, 96, 1024) for n in (0, 1, 33)])
+def test_payload_twin_matches_the_jax_superstep_formula(n, w, density):
+    """The twin against the per-bucket arithmetic of the JAX mesh superstep
+    (fuzzypatternmatching_tpu/parallel/sharded.py:900-941), in jnp on
+    uint32 words, and the wrapper on the CPU against the twin."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(n * 5 + w)
+    payload, adj, mask = _payload_inputs(rng, n, w, density=density)
+    u32 = jnp.uint32
+    p_raw = jnp.asarray(payload)[jnp.asarray(adj)]
+    p_b = p_raw & u32(0x7FFFFFFF)
+    send_ok = (p_b != 0) & (p_raw >= u32(0x80000000))
+    p_b = jnp.where(send_ok, p_b, u32(0))
+    accept = (p_b & jnp.asarray(mask.astype(np.uint32))[:, None]) != 0
+    tn = jax.lax.reduce(jnp.where(accept, p_b, u32(0)), np.uint32(0),
+                        jax.lax.bitwise_or, dimensions=[1])
+    sor = jnp.sum(send_ok, axis=1, dtype=jnp.int32)
+    args = _payload_args(payload, adj, mask)
+    got = ops.gather_accept_or_payload_reference(*args)
+    want = (np.asarray(tn).astype(np.int32), np.asarray(accept), np.asarray(sor))
+    for g, x in zip(got, want):
+        assert np.array_equal(g.numpy(), x)
+    adj_t, mask_t, table = args
+    for g, x in zip(ops.gather_accept_or(adj_t, None, mask_t, table, payload=True), got):
+        assert torch.equal(g, x)
+    if n and density == 1.0:
+        assert int(got[2].sum()) > 0  # the alive bit really gates
+
+
+def test_payload_wrapper_checks_its_arguments():
+    payload, adj, mask = _payload_inputs(np.random.RandomState(0), 4, 8)
+    adj_t, mask_t, table = _payload_args(payload, adj, mask)
+    with pytest.raises(ValueError):  # payload=True takes no alive_rev
+        ops.gather_accept_or(adj_t, torch.ones((4, 8), dtype=torch.bool), mask_t, table,
+                             payload=True)
+    with pytest.raises(ValueError):  # and the default needs one
+        ops.gather_accept_or(adj_t, None, mask_t, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("w", PAYLOAD_WIDTHS)
+@pytest.mark.parametrize("n", [0, 1, 33, 1000])
+def test_payload_kernel_matches_twin_on_cuda(cuda_device, n, w, offset, density):
+    """The payload kernel at the mesh engine's widths (every lane mapping)
+    against its twin; an index plane 4 bytes into a larger buffer is not
+    16-byte aligned."""
+    rng = np.random.RandomState(n * 13 + w + offset)
+    payload, adj, mask = _payload_inputs(rng, n, w, S=60000, density=density)
+    adj_t, mask_t, table = _payload_args(payload, adj, mask)
+    buf = torch.zeros(n * w + offset // 4, dtype=torch.int32, device=cuda_device)
+    buf[offset // 4 :] = adj_t.view(-1).to(cuda_device)
+    ops.reset_launches()
+    got = ops.gather_accept_or(
+        buf[offset // 4 :].view(n, w), None, mask_t.to(cuda_device),
+        table.to(cuda_device), payload=True,
+    )
+    torch.cuda.synchronize()
+    assert ops.launches["gather_accept_or_payload"] == (1 if n else 0)
+    for g, r in zip(got, ops.gather_accept_or_payload_reference(adj_t, mask_t, table)):
         assert torch.equal(g.cpu(), r)
 
 

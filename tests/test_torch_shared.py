@@ -103,6 +103,24 @@ def test_from_edges_and_degree_labels_equal_original(use_native):
     assert lab.dtype == lab_j.dtype and np.array_equal(lab, lab_j)
 
 
+@pytest.mark.parametrize("use_native", [False, True], ids=["numpy", "native"])
+def test_graph_edge_range_accessors_equal_original(use_native):
+    """The edge-range accessor protocol the mesh engine reads the graph
+    through: the same arrays as the JAX Graph's on random ranges and ids."""
+    src, dst = jax_rmat.rmat_all_ranks(10, 4, use_native=False, scramble=False)
+    g = csr.from_edges(src, dst, num_vertices=1 << 10, use_native=use_native)
+    gj = jax_csr.from_edges(src, dst, num_vertices=1 << 10, use_native=use_native)
+    rng = np.random.RandomState(1)
+    for _ in range(20):
+        lo, hi = sorted(rng.randint(0, g.num_edges + 1, size=2))
+        for name in ("cols_range", "rev_range", "edge_row_range"):
+            x, y = getattr(g, name)(lo, hi), getattr(gj, name)(lo, hi)
+            assert x.dtype == y.dtype and np.array_equal(x, y), name
+    ids = rng.randint(0, g.num_edges, size=300)
+    for name in ("cols_at", "edge_row_at"):
+        assert np.array_equal(getattr(g, name)(ids), getattr(gj, name)(ids)), name
+
+
 def _same_pattern(p, pj):
     for name in ("vertex_count", "edge_count", "diameter"):
         assert getattr(p, name) == getattr(pj, name)

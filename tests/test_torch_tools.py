@@ -7,7 +7,7 @@
 * the port's ``run_algorithms`` for every algorithm with ``--device cpu``,
   its saved outputs against the JAX CLI's (PageRank with rtol=1e-5,
   atol=1e-6), and its refusals (``--device cuda`` without a card,
-  ``--sharded``);
+  ``triangles --sharded``);
 * the port's search CLI with ``--pattern-set 0 -v -b --output-vertex-data``
   on the tree_s13 golden configuration against the JAX CLI's result tree,
   file by file (wall-clock fields stripped), and against the golden tree.
@@ -176,8 +176,8 @@ def test_run_algorithms_matches_the_jax_cli(algo_db, tmp_path, capsys, algo, fla
 
 
 def test_run_algorithms_refusals(algo_db):
-    with pytest.raises(SystemExit):
-        run_algorithms.main(["cc", "-i", algo_db, "--sharded", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # no sharded triangle count
+        run_algorithms.main(["triangles", "-i", algo_db, "--sharded", "--device", "cpu"])
     if torch.cuda.is_available():
         return
     for argv in (["cc", "-i", algo_db], ["bfs", "-i", algo_db, "--device", "cuda"]):
