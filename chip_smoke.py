@@ -104,7 +104,22 @@ NVIDIA GPU:
  23. the s21 cycle search on the 4-shard mesh, nlcc_mode="device" (the
      mesh NLCC routes the tokens), one run: 169/346/56 and 105,906,296,
      no host fallback, the walk kernels' launches and each constraint's
-     seconds.
+     seconds;
+ 24. the mesh across processes: the s21 graph of phase 5 goes to 2
+     processes as .npy files in a temporary directory; the port's launcher
+     (cli/launch_multiprocess.py) starts them with one card visible, so
+     the backend rule of utils/dist.placement puts both on it, 2 shards
+     each, joined over gloo (4 shards in all); each builds the mesh LCC
+     engine on the tree corpus and runs lcc_call from the init state (the
+     global init superstep through the diameter) once warm and twice
+     timed. Their rows equal those of the one-process 4-shard mesh of
+     phase 22 (which runs the same calls), each shard's final tv block and
+     alive slots equal that mesh's byte for byte, and each process
+     launched the payload kernel; the per-superstep times of both, and the
+     bytes each process sent across the process boundary;
+ 25. the same with 2 cards visible, where the machine has them: the same
+     rule then gives one process per card over NCCL, 2 shards each; on one
+     card a line says it did not run and why.
 
 Any failure ends the run with a non-zero exit code, and so does a run
 without a CUDA device or without the rest of the repository. The last two
@@ -116,10 +131,15 @@ launches are those of the phase 22 full-plane search) and the result line
 ``{"ok": true, ...}``.
 
 Usage: python3 chip_smoke.py   (from the repository root; one CUDA card)
+(``chip_smoke.py --mesh-child DIR ...`` is phase 24-25's per-process
+part, which the launcher starts.)
 """
 
+import argparse
 import json
 import os
+import pickle
+import signal
 import subprocess
 import sys
 import tempfile
@@ -143,7 +163,7 @@ from fuzzypatternmatching_tpu_torch.engine.result import MatchResult
 from fuzzypatternmatching_tpu_torch.generators.rmat import rmat_all_ranks
 from fuzzypatternmatching_tpu_torch.golden import GOLDEN_BASE, REPO, build_config
 from fuzzypatternmatching_tpu_torch.graph import storage
-from fuzzypatternmatching_tpu_torch.graph.csr import degree_labels, from_edges
+from fuzzypatternmatching_tpu_torch.graph.csr import Graph, degree_labels, from_edges
 from fuzzypatternmatching_tpu_torch.ops import _build
 from fuzzypatternmatching_tpu_torch.ops import lcc_superstep as ops
 from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
@@ -153,7 +173,12 @@ from fuzzypatternmatching_tpu_torch.pattern.nonlocal_constraint import (
     load_nonlocal_constraints,
 )
 from fuzzypatternmatching_tpu_torch.pattern.pattern_graph import load_pattern_graph
-from fuzzypatternmatching_tpu_torch.utils.dist import build_mesh
+from fuzzypatternmatching_tpu_torch.parallel.sharded import ShardedLccEngine
+from fuzzypatternmatching_tpu_torch.utils.dist import (
+    add_distributed_args,
+    build_mesh,
+    init_distributed,
+)
 
 S21_ANCHORS = {
     "active_vertices": 147,
@@ -206,10 +231,16 @@ DENSITIES = (0.005, 0.6, 1.0)
 BUCKET_KERNELS = ("pack_alive", "rev_alive_lookup", "gather_accept_or")
 PAYLOAD = "gather_accept_or_payload"
 MESH_SHARDS = 4  # the s21 mesh of phases 22-23, on the one card
+# phases 24-25: 2 processes x 2 shards (the 4 shards of phase 22's mesh)
+MESH_PROCESSES = 2
+GRAPH_FILES = ("row_ptr", "cols", "rev_edge", "raw_degree", "edge_row")
+CHILD_TIMEOUT = 420  # seconds the launcher and its processes may take
 
 
 def log(msg):
-    print(msg, flush=True)
+    # one write a line: the processes of phases 24-25 share one pipe
+    sys.stdout.write(f"{msg}\n")
+    sys.stdout.flush()
 
 
 def summary(r):
@@ -1699,7 +1730,16 @@ def run_s21_mesh(g, labels, pattern, constraints, dev, errs):
         f"{100 * bound / k_ms:.1f} % of bound; library call: none; the whole mesh "
         f"superstep (eager, host dispatch included) {step_ms:.3f} ms")
     del calls, chk, st
-    return (k_ms, p_ms, bound, None), launches["full plane"][PAYLOAD]
+
+    # what phase 24's processes run, on this one-process mesh
+    rows, died, st, ms, _ = time_lcc_calls(lcc)
+    ref = {"rows": mesh_rows(rows), "died": died, "blocks": lcc.local_blocks(st), "ms": ms,
+           "exchange_ms": time_exchanges(lcc)}
+    log(f"[22] lcc_call from the init state on the one-process mesh ({len(rows)} "
+        f"supersteps, the reference of phase 24): timed {[round(t, 3) for t in ms]} ms, "
+        f"{min(ms) / len(rows):.3f} ms a superstep; a non-init superstep's exchanges "
+        f"alone {ref['exchange_ms']:.3f} ms; rows {[r[:3] for r in rows]}")
+    return (k_ms, p_ms, bound, None), launches["full plane"][PAYLOAD], ref
 
 
 def run_s21_mesh_cycle(g, labels, dev):
@@ -1726,6 +1766,175 @@ def run_s21_mesh_cycle(g, labels, dev):
         f"{summary(r)}, anchors OK {S21_CYCLE_ANCHORS}, nlcc_fallbacks 0; kernel launches "
         f"{dict(ops.launches)}, walk kernel launches {walk}; TP rows (iteration, "
         f"constraint, seconds, messages) {tp_rows(r)}")
+
+
+def time_lcc_calls(lcc, calls=3):
+    """``calls`` runs of ``lcc_call`` from the init state (the global init
+    superstep through the diameter), the first warm: (rows, died, final
+    state, ms of each timed call, bytes sent across processes per call)."""
+    ms, cross = [], []
+    for i in range(calls):
+        b0 = lcc.mesh.cross_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, rows, died = lcc.lcc_call(lcc.init_state(), True)
+        torch.cuda.synchronize()
+        if i:
+            ms.append(1000 * (time.perf_counter() - t0))
+        cross.append(lcc.mesh.cross_bytes - b0)
+    return rows, died, st, ms, cross
+
+
+def time_exchanges(lcc, reps=3):
+    """ms of one non-init default-mode superstep's exchanges alone, on
+    buffers of its shapes (the best of ``reps``): the row-tv and payload
+    halos, the partials to the owners and the new tv back (int32
+    all_to_all), the counters (psum) and the died flag (pmax)."""
+    mesh, n, dev = lcc.mesh, lcc.n, lcc.mesh.devices[0]
+
+    def bufs(*shape, dtype=torch.int32):
+        return [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(mesh.local)]
+
+    sends = [bufs(n, lcc.halo_h), bufs(n, lcc.halo_hrev), bufs(n, lcc.halo_k, 1),
+             bufs(n, lcc.halo_k)]
+    counters = bufs(3 * lcc.num_ranks, dtype=torch.int64)
+    died = bufs(1, dtype=torch.int64)
+
+    def step():
+        for x in sends:
+            mesh.all_to_all(x)
+        mesh.psum(counters)
+        mesh.pmax(died)
+
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if i:
+            times.append(1000 * (time.perf_counter() - t0))
+    return min(times)
+
+
+def mesh_rows(rows):
+    return [(av, ae, msg, {k: v.tolist() for k, v in per.items()}) for av, ae, msg, per in rows]
+
+
+def mesh_child(argv) -> int:
+    """Phases 24-25 in one of the launcher's processes: the graph from the
+    directory's files, this process's shards of the mesh, the mesh LCC
+    engine on the tree corpus, three lcc_calls; the result to the
+    directory."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh-child", required=True, help="directory of the graph files")
+    add_distributed_args(ap)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke --mesh-child: no CUDA device")
+    d = args.mesh_child
+    backend = init_distributed(args, "cuda")  # utils/dist.placement's rule
+    tag = "[24]" if backend == "gloo" else "[25]"
+    try:
+        arr = {k: np.load(os.path.join(d, f"{k}.npy")) for k in GRAPH_FILES + ("labels",)}
+        g = Graph(len(arr["row_ptr"]) - 1, *(arr[k] for k in GRAPH_FILES))
+        with tempfile.TemporaryDirectory() as tmp:
+            pattern, _ = load_tree_pattern(tmp)
+        mesh = build_mesh(shards=MESH_SHARDS // MESH_PROCESSES, device="cuda")
+        pid = mesh.process_index
+        t0 = time.perf_counter()
+        lcc = ShardedLccEngine(g, arr["labels"], pattern, mesh=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ops.reset_launches()
+        rows, died, st, ms, cross = time_lcc_calls(lcc)
+        launches = ops.launches[PAYLOAD]
+        exchange_ms = time_exchanges(lcc)
+        log(f"{tag} process {pid}: {mesh}, engine build {build_s:.3f} s; lcc_call "
+            f"({len(rows)} supersteps) timed {[round(t, 3) for t in ms]} ms, "
+            f"{min(ms) / len(rows):.3f} ms a superstep; a non-init superstep's exchanges "
+            f"alone {exchange_ms:.3f} ms; bytes sent to the other process per call "
+            f"{cross} ({cross[-1] / len(rows):.0f} a superstep); payload kernel "
+            f"launches {launches}")
+        res = {"backend": backend, "card": torch.cuda.current_device(),
+               "rows": mesh_rows(rows), "died": died, "ms": ms, "cross": cross,
+               "launches": launches, "blocks": lcc.local_blocks(st), "build_s": build_s,
+               "exchange_ms": exchange_ms}
+        with open(os.path.join(d, f"result_{pid}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_mesh_processes(g, labels, ref, cards, backend, tag):
+    """Phase 24 (``cards`` = 1, gloo) or 25 (2 cards, NCCL): the launcher
+    runs ``mesh_child`` in ``MESH_PROCESSES`` processes that see the first
+    ``cards`` cards, and each picks its backend and card by the port's rule
+    (``utils/dist.placement``), which must give ``backend``; their rows and
+    shards against ``ref``, the one-process mesh's."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = visible.split(",") if visible else [str(i) for i in range(torch.cuda.device_count())]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=",".join(ids[:cards]))
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for k in GRAPH_FILES:
+            np.save(os.path.join(d, k), getattr(g, k))
+        np.save(os.path.join(d, "labels"), labels)
+        hand_s = time.perf_counter() - t0
+        cmd = [sys.executable, "-m", "fuzzypatternmatching_tpu_torch.cli.launch_multiprocess",
+               "-n", str(MESH_PROCESSES), "--", sys.executable, os.path.abspath(__file__),
+               "--mesh-child", d]
+        t0 = time.perf_counter()
+        p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             cwd=REPO, env=env, start_new_session=True)
+        try:
+            out, _ = p.communicate(timeout=CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            out, _ = p.communicate()
+            raise AssertionError(f"{tag}: the processes ran past {CHILD_TIMEOUT} s:\n{out}")
+        run_s = time.perf_counter() - t0
+        print(out, end="", flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: the launcher exited with {p.returncode}")
+        results = []
+        for pid in range(MESH_PROCESSES):
+            with open(os.path.join(d, f"result_{pid}.pkl"), "rb") as f:
+                results.append(pickle.load(f))  # written by mesh_child
+    seen = []
+    for pid, res in enumerate(results):
+        if res["backend"] != backend:
+            raise AssertionError(f"{tag} process {pid}: backend {res['backend']} on "
+                                 f"{cards} card(s), want {backend}")
+        if res["rows"] != ref["rows"] or res["died"] != ref["died"]:
+            raise AssertionError(f"{tag} process {pid}: rows {[r[:3] for r in res['rows']]} "
+                                 f"!= the one-process mesh's {[r[:3] for r in ref['rows']]}")
+        for r, (tv, alive) in res["blocks"].items():
+            tv_w, alive_w = ref["blocks"][r]
+            if tv.tobytes() != tv_w.tobytes() or alive.tobytes() != alive_w.tobytes():
+                raise AssertionError(f"{tag} process {pid}: shard {r}'s final tv or alive "
+                                     "differs from the one-process mesh's")
+            seen.append(r)
+        if res["launches"] < 1:
+            raise AssertionError(f"{tag} process {pid}: no launch of the payload kernel")
+    if sorted(seen) != list(range(MESH_SHARDS)):
+        raise AssertionError(f"{tag}: the processes held shards {sorted(seen)}")
+    steps = len(ref["rows"])
+    per_step = [min(res["ms"]) / steps for res in results]
+    how = (" (gloo takes the CUDA tensors in every collective and copies them through "
+           "host memory itself)" if backend == "gloo" else "")
+    log(f"{tag} {MESH_PROCESSES} processes x {MESH_SHARDS // MESH_PROCESSES} shards over "
+        f"{backend} on cards {[res['card'] for res in results]}{how}: "
+        f"rows equal the one-process mesh's, and every shard's final tv and alive slots byte "
+        f"for byte; payload kernel launches per process {[res['launches'] for res in results]}; "
+        f"ms a superstep per process {[round(x, 3) for x in per_step]} against "
+        f"{min(ref['ms']) / steps:.3f} on the one-process mesh; a non-init superstep's "
+        f"exchanges alone {[round(res['exchange_ms'], 3) for res in results]} ms against "
+        f"{ref['exchange_ms']:.3f}; bytes sent across the process boundary a superstep per "
+        f"process {[round(res['cross'][-1] / steps) for res in results]}; "
+        f"graph hand-off {hand_s:.2f} s, launch to exit {run_s:.2f} s (engine builds "
+        f"{[round(res['build_s'], 2) for res in results]} s)")
 
 
 def main() -> int:
@@ -1821,10 +2030,23 @@ def main() -> int:
     t0 = time.perf_counter()
     compare_payload_small(dev, golden, errs)
     mesh_dryrun(golden, dev)
-    times[PAYLOAD], launches[PAYLOAD] = run_s21_mesh(g, labels, pattern, constraints, dev, errs)
+    times[PAYLOAD], launches[PAYLOAD], ref = run_s21_mesh(
+        g, labels, pattern, constraints, dev, errs
+    )
     torch.cuda.empty_cache()
     run_s21_mesh_cycle(g, labels, dev)
+    torch.cuda.empty_cache()
     log(f"[20-23] the multi-device plane's phases took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    run_mesh_processes(g, labels, ref, 1, "gloo", "[24]")
+    if torch.cuda.device_count() >= MESH_PROCESSES:
+        run_mesh_processes(g, labels, ref, MESH_PROCESSES, "nccl", "[25]")
+    else:
+        log(f"[25] NCCL across processes not run: {torch.cuda.device_count()} CUDA "
+            f"device here, and NCCL takes one process per card ({MESH_PROCESSES} cards "
+            f"needed; it refuses two processes on one card)")
+    log(f"[24-25] the mesh across processes took {time.perf_counter() - t0:.1f} s")
 
     bad = sorted(
         k for k in sys.modules
@@ -1860,4 +2082,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-child" in sys.argv[1:]:
+        sys.exit(mesh_child(sys.argv[1:]))
     sys.exit(main())

@@ -45,7 +45,7 @@ def _chunked_csr(graph, mesh: Mesh, extra: np.ndarray | None = None):
     e, n = graph.num_edges, mesh.n
     ec = max(-(-e // n), 1)
     out = []
-    for r, dev in enumerate(mesh.devices):
+    for r, dev in zip(mesh.shard_ids, mesh.devices):
         lo, hi = r * ec, min((r + 1) * ec, e)
         hi = max(hi, lo)
         col = torch.from_numpy(np.asarray(graph.cols_range(lo, hi), dtype=np.int32)).to(dev)

@@ -23,7 +23,12 @@ one shard per visible CUDA device, or ``--shards N`` shards on one device
 (the port's own flag; with ``--device cpu``, N shards on the CPU).
 ``--mmap`` opens the DB shard by shard with no global CSR
 (``storage.open_db``), on the sharded engine only. ``--distributed`` (a
-multi-process run) is not ported and raises. ``--device cuda`` (the
+multi-process run, ``cli/launch_multiprocess.py``) joins the process group
+(``utils/dist.placement``: gloo for ``--device cpu`` and for processes that
+share a card, else NCCL, one process per card); the mesh of ``--lcc-engine sharded`` then spans the processes, and
+the search stops with the driver's error: its match loop is
+single-controller, as in the JAX package, whose multi-process run covers
+the LCC data plane (``cli/sharded_lcc_demo.py``). ``--device cuda`` (the
 default) requires a CUDA card; there is no fallback to the CPU.
 """
 
@@ -120,7 +125,12 @@ def main(argv=None):
                          "(0 = every numbered subdirectory present)")
     ap.add_argument("--max-iterations", type=int, default=100)
     ap.add_argument("--lcc-engine", choices=["bucketed", "flat", "sharded"],
-                    default="bucketed")
+                    default="bucketed",
+                    help="LCC engine; with --distributed, 'sharded' builds "
+                         "a mesh across the processes, which the search "
+                         "refuses (its match loop is single-controller; "
+                         "the LCC data plane alone runs across processes: "
+                         "cli/sharded_lcc_demo.py)")
     ap.add_argument("--counting", action="store_true",
                     help="counting-LCC: require per-neighbor-label-class "
                          "count thresholds from the template "
@@ -154,7 +164,7 @@ def main(argv=None):
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
-    init_distributed(args)
+    init_distributed(args, args.device)
     mesh = (
         build_mesh(shards=args.shards, device=args.device)
         if args.lcc_engine == "sharded" else None

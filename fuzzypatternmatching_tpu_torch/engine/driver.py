@@ -91,6 +91,16 @@ class MatchEngine:
             from ..utils.dist import build_mesh
 
             mesh = build_mesh(device=device)
+        if sharded and mesh.spans_processes:
+            raise NotImplementedError(
+                f"{mesh}: the match loop is single-controller, as in the JAX "
+                "package: it reads the whole LCC state on the host between "
+                "calls (the compact continuation, the NLCC placement and "
+                "walks), and a mesh across processes holds it in several "
+                "processes. Across processes only the LCC data plane runs "
+                "(parallel/sharded.py: init_state + lcc_call; "
+                "cli/sharded_lcc_demo.py)"
+            )
         # the mesh's first device hosts the driver's own device work (the
         # compact sub-engine)
         self.device = mesh.devices[0] if sharded else torch.device(device)

@@ -32,6 +32,14 @@ class Graph:
     def num_edges(self) -> int:
         return int(self.cols.shape[0])
 
+    def neighbors(self, v: int) -> np.ndarray:
+        return self.cols[self.row_ptr[v] : self.row_ptr[v + 1]]
+
+    def degree(self, v: int) -> int:
+        """Reference-semantics degree: counts duplicate edge entries
+        (delegate_partitioned_graph.hpp degree())."""
+        return int(self.raw_degree[v])
+
     # -- edge-range accessor protocol (shared with storage.GraphDb, which
     # serves the same reads from per-shard memmaps without a global CSR) --
 
@@ -121,3 +129,20 @@ def degree_labels(graph: Graph) -> np.ndarray:
     d = graph.raw_degree.astype(np.float64)
     return np.ceil(np.log2(d + 1.0)).astype(np.uint64)
 
+
+def grid_graph(rows: int, cols_n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Deterministic grid fixture edge list (both directions), mirroring the
+    reference's static test graph (test/include/input_graph.hpp:1-68)."""
+    srcs, dsts = [], []
+    for r in range(rows):
+        for c in range(cols_n):
+            u = r * cols_n + c
+            if c + 1 < cols_n:
+                vtx = r * cols_n + (c + 1)
+                srcs += [u, vtx]
+                dsts += [vtx, u]
+            if r + 1 < rows:
+                vtx = (r + 1) * cols_n + c
+                srcs += [u, vtx]
+                dsts += [vtx, u]
+    return np.array(srcs, dtype=np.int64), np.array(dsts, dtype=np.int64)

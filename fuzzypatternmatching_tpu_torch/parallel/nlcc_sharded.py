@@ -69,6 +69,11 @@ class ShardedNlcc:
     def __init__(self, num_vertices: int, mesh: Mesh, num_ranks: int = 1):
         if num_vertices >= (1 << 31):
             raise ValueError("device NLCC dedup keys require V < 2^31")
+        if mesh.spans_processes:
+            raise NotImplementedError(
+                "the mesh NLCC runs in the single-controller host loop "
+                "(MatchEngine), on a mesh held by one process"
+            )
         self.V = num_vertices
         self.R = num_ranks
         self.mesh = mesh

@@ -25,7 +25,15 @@ the JAX engine's:
   per-output-rank attribution is ``gid % num_ranks`` over each owner block.
 
 The superstep is per-shard code between the mesh's exchanges
-(``parallel/mesh.py``); the shards run one after the other in this process.
+(``parallel/mesh.py``); a process runs its own shards one after the other.
+On a mesh across processes every process builds the same host layout (as
+every JAX process builds the same global arrays before ``device_put``) and
+uploads and runs only its own shards; the exchanges and the counters go
+through the process group, so ``lcc_call`` returns the same rows in every
+process. The host reads of the whole state (``tv_host``, ``alive_pairs``,
+``state_to_global``, the lazy states, ``with_updates``) serve the
+single-controller host loop of ``MatchEngine`` and refuse such a mesh;
+``local_blocks`` reads each process's own shards.
 Its default, non-init branch runs the payload variant of the
 ``gather_accept_or`` kernel per shard and bucket; the init superstep, the
 counting and the metadata branches are plain torch, as in the bucketed
@@ -142,7 +150,7 @@ class ShardedLccEngine:
 
             mesh = build_mesh(num_devices=num_devices, device=device)
         self.mesh = mesh
-        self.n = n = mesh.n
+        self.n = n = mesh.n  # global shards; this process holds mesh.shard_ids
         self.graph = graph
         self.p = pattern
         self.num_ranks = num_ranks
@@ -394,10 +402,10 @@ class ShardedLccEngine:
                 class_vert[:v][labels == cl] = j + 1
             cls_s = [class_vert[col_of_slot[r]] for r in range(n)]
 
-        # --- upload, shard by shard ----------------------------------------
+        # --- upload this process's shards ----------------------------------
         R = num_ranks
         self._shards = []
-        for r, dev in enumerate(mesh.devices):
+        for r, dev in zip(mesh.shard_ids, mesh.devices):
             def put(a, dev=dev):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -600,7 +608,7 @@ class ShardedLccEngine:
         if self.counting:
             own_cnt = deliver([p[1] for p in parts], lambda buf, idx, vals: buf.index_add_(0, idx, vals))
         new_tv, died = [], []
-        for o in range(n):
+        for o in range(len(sh)):  # the local shards as owners
             if meta:
                 in_map = own[o][:, self.k] != 0
                 nt = tv_loc[o] & keep_mask_per_i(
@@ -696,12 +704,15 @@ class ShardedLccEngine:
         )
 
     def _slot_flags(self, edge_ids) -> list[torch.Tensor]:
-        """Per-shard bool [S] slot flags set at the given edges."""
+        """Per local shard bool [S] slot flags set at the given edges."""
         flags = np.zeros(self.n * self.S, dtype=bool)
         if edge_ids is not None and len(edge_ids):
             flags[self._edge_to_ellslot[np.asarray(edge_ids, dtype=np.int64)]] = True
         flags = flags.reshape(self.n, self.S)
-        return [torch.from_numpy(flags[r]).to(s.device) for r, s in enumerate(self._shards)]
+        return [
+            torch.from_numpy(flags[r]).to(s.device)
+            for r, s in zip(self.mesh.shard_ids, self._shards)
+        ]
 
     def _tv_blocks(self, tv: np.ndarray) -> list[torch.Tensor]:
         tv_p = np.zeros(self.vpad, dtype=np.uint32)
@@ -710,8 +721,26 @@ class ShardedLccEngine:
         b = self.block
         return [
             torch.from_numpy(tv_p[r * b : (r + 1) * b].copy()).to(s.device)
-            for r, s in enumerate(self._shards)
+            for r, s in zip(self.mesh.shard_ids, self._shards)
         ]
+
+    def _single_controller(self, what: str) -> None:
+        if self.mesh.spans_processes:
+            raise NotImplementedError(
+                f"{what} reads the whole state, which a mesh across processes "
+                "holds in several processes: the host loop that needs it is "
+                "single-controller, as in the JAX package (its multi-process "
+                "run covers the data plane, init_state + lcc_call); use "
+                "local_blocks for each process's shards"
+            )
+
+    def local_blocks(self, state: ShardedState) -> dict[int, tuple[np.ndarray, np.ndarray]]:
+        """This process's shards of a state: global shard id -> (its owner
+        block of tv, int32 [block]; its alive slots, bool [S])."""
+        return {
+            r: (t.cpu().numpy(), a.cpu().numpy())
+            for r, t, a in zip(self.mesh.shard_ids, state.tv, state.alive)
+        }
 
     def state_from_global(self, tv, edge_alive, tp_flag) -> ShardedState:
         """State from flat (V, E)-indexed host arrays."""
@@ -721,11 +750,13 @@ class ShardedLccEngine:
         )
 
     def state_to_global(self, state: ShardedState):
+        self._single_controller("state_to_global")
         alive = np.zeros(self.graph.num_edges, dtype=bool)
         alive[self.alive_edge_ids(state)] = True
         return self.tv_host(state).copy(), alive
 
     def tv_host(self, state: ShardedState) -> np.ndarray:
+        self._single_controller("tv_host")
         if state.tv_np is None:
             tv = torch.cat([t.cpu() for t in state.tv]).numpy().view(np.uint32)
             state.tv_np = tv[: self.num_vertices]
@@ -735,6 +766,7 @@ class ShardedLccEngine:
         """(row, col) int64 arrays of the alive edges in CSR row-major
         order: the alive slots found on the device, their edge ids sorted
         (ascending ids are row-major order)."""
+        self._single_controller("alive_pairs")
         if state.pairs_cache is not None:
             return state.pairs_cache[:2]
         if state.alive is None:  # lazy: the sorted edge ids are the pairs
@@ -766,6 +798,7 @@ class ShardedLccEngine:
         marks on ``flag_ids``; ``lazy=True`` keeps it on the host."""
         tv32 = np.asarray(tv).astype(np.uint32)
         if lazy:
+            self._single_controller("a lazy state")
             return ShardedState(
                 tv=None, alive=None, tp_flag=None, tv_np=tv32,
                 lazy_edge_ids=normalized_edge_ids(edge_ids),
@@ -790,6 +823,7 @@ class ShardedLccEngine:
 
     def with_updates(self, state: ShardedState, tv: np.ndarray, tp_marks):
         """Replace tv and set token-passing success marks (slot flags)."""
+        self._single_controller("with_updates")
         tv32 = np.asarray(tv).astype(np.uint32)
         if state.alive is None:
             return ShardedState(

@@ -77,6 +77,10 @@ def test_every_port_module_is_listed():
         "fuzzypatternmatching_tpu_torch.parallel.nlcc_sharded",
         "fuzzypatternmatching_tpu_torch.algorithms.frontier_sharded",
         "fuzzypatternmatching_tpu_torch.cli.comm_rate_test",
+        "fuzzypatternmatching_tpu_torch.engine.oracle",
+        "fuzzypatternmatching_tpu_torch.generators.synthetic",
+        "fuzzypatternmatching_tpu_torch.cli.launch_multiprocess",
+        "fuzzypatternmatching_tpu_torch.cli.sharded_lcc_demo",
     ):
         assert name in mods
 

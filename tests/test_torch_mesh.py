@@ -155,7 +155,8 @@ def test_mmap_cli_writes_the_jax_tree(tmp_path, capsys):
     with pytest.raises(SystemExit):
         run_pattern_matching.main(["-i", db, "-p", patterns, "-o", str(tmp_path / "x"),
                                    "--device", "cpu", "--shards", "2"])
-    with pytest.raises(NotImplementedError):
+    # --distributed joins a process group, which needs its address, size and rank
+    with pytest.raises(ValueError, match="--coordinator"):
         run_pattern_matching.main(["-i", db, "-p", patterns, "-o", str(tmp_path / "x"),
                                    "--device", "cpu", "--distributed"])
 

@@ -2,8 +2,8 @@
 against their originals: on the same seeded inputs each copy gives what the
 original gives (the R-MAT stream and its scramble, the CSR, the pattern
 loaders, the NLCC/TDS walks, the result trees, the graph DB reader, the
-label and lazy-state helpers). Everything compared is an integer array,
-count or file: exact equality."""
+label and lazy-state helpers, the oracle, the synthetic streams).
+Everything compared is an integer array, count or file: exact equality."""
 
 import json
 import os
@@ -14,8 +14,10 @@ import pytest
 
 from fuzzypatternmatching_tpu.engine import lazy_state as jax_lazy
 from fuzzypatternmatching_tpu.engine import nlcc as jax_nlcc
+from fuzzypatternmatching_tpu.engine import oracle as jax_oracle
 from fuzzypatternmatching_tpu.engine.driver import MatchEngine as JaxMatchEngine
 from fuzzypatternmatching_tpu.generators import rmat as jax_rmat
+from fuzzypatternmatching_tpu.generators import synthetic as jax_synthetic
 from fuzzypatternmatching_tpu.graph import csr as jax_csr
 from fuzzypatternmatching_tpu.graph import storage as jax_storage
 from fuzzypatternmatching_tpu.io import labels as jax_labels
@@ -25,10 +27,10 @@ from fuzzypatternmatching_tpu.pattern import nonlocal_constraint as jax_nlc
 from fuzzypatternmatching_tpu.pattern import pattern_graph as jax_pg
 from fuzzypatternmatching_tpu.utils import hashing as jax_hashing
 from fuzzypatternmatching_tpu_torch import golden, native
-from fuzzypatternmatching_tpu_torch.engine import lazy_state, nlcc
+from fuzzypatternmatching_tpu_torch.engine import lazy_state, nlcc, oracle
 from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
 from fuzzypatternmatching_tpu_torch.engine.lcc_bucketed import BucketedLccEngine
-from fuzzypatternmatching_tpu_torch.generators import rmat
+from fuzzypatternmatching_tpu_torch.generators import rmat, synthetic
 from fuzzypatternmatching_tpu_torch.graph import csr, storage
 from fuzzypatternmatching_tpu_torch.io import labels as port_labels
 from fuzzypatternmatching_tpu_torch.io import results
@@ -662,3 +664,61 @@ def test_write_vertex_data_equals_original(tmp_path):
     assert _db_files_equal(str(tmp_path / "port"), str(tmp_path / "jax")) == [
         f"0/all_ranks_vertex_data/vertex_data_{r}" for r in range(3)
     ]
+
+
+def _result_trace(r):
+    return (
+        [(x.itr, x.phase, x.step, x.active_vertices, x.active_edges, x.messages,
+          None if x.per_rank is None else {k: list(v) for k, v in x.per_rank.items()})
+         for x in r.rows],
+        r.pattern_found, r.iterations, r.active_vertices, r.active_edges,
+        {k: sorted(v) for k, v in r.subgraphs.items()},
+    )
+
+
+@pytest.mark.parametrize(
+    "name, mode",
+    [("tree_s13", "plain"), ("cycle_s13", "plain"), ("tree_s13", "ranks4"),
+     ("tree_s13", "counting"), ("tree_s13", "metadata")],
+)
+def test_oracle_equals_original(golden_meta, name, mode, tmp_path):
+    """The port's MatchOracle against the JAX package's on the golden
+    configurations: every PhaseRow (with the per-rank counters), the found
+    flags, the iterations, the active sets and the subgraphs; with 4 output
+    ranks, counting, and edge metadata (the tree corpus with its
+    pattern_edge_data, every edge at 55 but every seventh at 56)."""
+    (g, labels, p, cs), (gj, _, pj, cjs) = _configs(golden_meta, name)
+    kw = {}
+    if mode == "ranks4":
+        kw = {"num_ranks": 4}
+    elif mode == "counting":
+        kw = {"counting": True, "num_ranks": 4}
+    elif mode == "metadata":
+        p, cs = builtin.load_tree_pattern(str(tmp_path / "port"))
+        pj, cjs = jax_builtin.load_tree_pattern(str(tmp_path / "jax"))
+        ed = np.where(np.arange(g.num_edges) % 7 == 0, 56, 55).astype(np.int64)
+        ed = np.where(g.edge_row < g.cols, ed, ed[np.maximum(g.rev_edge, 0)])
+        kw = {"edge_data": ed}
+    got = oracle.MatchOracle(g, labels, p, cs, **kw).run()
+    want = jax_oracle.MatchOracle(gj, labels, pj, cjs, **kw).run()
+    assert _result_trace(got) == _result_trace(want)
+
+
+def test_synthetic_streams_equal_original():
+    """upper_triangle, the bit-exact preferential attachment (with rewiring
+    and several ranks; its scramble needs 2^17 nodes) and the sequential
+    one."""
+    for und in (True, False):
+        for x, y in zip(synthetic.upper_triangle(9, und), jax_synthetic.upper_triangle(9, und)):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+    for kw in (
+        dict(node_scale=5, edge_scale=8, beta=1.0, scramble=False),
+        dict(node_scale=6, edge_scale=9, beta=0.5, prob_rewire=0.2, n_ranks=3,
+             base_seed=11, scramble=False),
+    ):
+        for x, y in zip(synthetic.preferential_attachment_exact(**kw),
+                        jax_synthetic.preferential_attachment_exact(**kw)):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+    for x, y in zip(synthetic.preferential_attachment(300, 3, seed=4, beta=0.7),
+                    jax_synthetic.preferential_attachment(300, 3, seed=4, beta=0.7)):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
