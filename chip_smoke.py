@@ -81,12 +81,15 @@ NVIDIA GPU:
      vertex data), build_edge_metadata attaches weights, and every
      run_algorithms algorithm gives on the card what it gives with
      --device cpu (PageRank within rtol 1e-5, atol 1e-6);
- 20. the payload variant of gather_accept_or (the mesh LCC superstep)
-     against its twin, exactly: widths 1..1024 (the mesh engine's
-     half-step widths and narrower), n = 0/1/33/1000, alive bits clear,
-     0.5 %, 60 % and all set, pad slots reading the appended zero word,
-     all-zero/all-one masks; and every call of a tree_s13 full-plane
-     search on 4 shards of the card, whose chunk boundaries split rows;
+ 20. the mesh LCC superstep's kernels against their twins, exactly:
+     pack_sends on payload tables of 1 to 2^22 + 5 words (lengths off 32
+     and off G, G = 32 and 64), with INT_MIN words (alive, no candidates)
+     and the appended zero word, alive bits clear, 0.5 %, 60 % and all
+     set; gather_accept_or_payload in one call over a bucket table of
+     width 1 and the mesh engine's widths 8..1024, each with 0, 1, 33 or
+     1000 rows, random/all-zero/all-one masks, on index planes aligned and
+     not; and every call of a tree_s13 full-plane search on 4 shards of
+     the card, whose chunk boundaries split rows;
  21. the multi-device dryrun on the card: tree_s13 and cycle_s13 with
      lcc_engine="sharded", nlcc_mode="device", compact=False and
      num_ranks = n on meshes of 1, 2 and 4 shards of cuda:0: the golden
@@ -97,14 +100,19 @@ NVIDIA GPU:
      the compact continuation (the mesh runs the init superstep, the
      sub-engine the rest), one warm and one timed on the full plane (every
      superstep on the mesh), the anchors on every run, the kernels'
-     launches, the per-shard working set and peak device memory; the
-     payload kernel against its twin on every call of one full-plane
-     superstep at the post-init state, timed by CUDA-graph replay beside
-     its bytes bound, and that superstep's eager time;
+     launches, the per-shard working set and peak device memory; the mesh
+     superstep's kernels against their twins on every call of one
+     full-plane superstep at the post-init state, and timed there by
+     CUDA-graph replay: the pair (a pack and a gather per shard) beside the
+     bytes bound of the whole function, each part alone beside its own
+     bound, the twins, the pair with every payload word alive and with
+     every word sending; that superstep's eager time; the share of payload
+     words that send in each superstep of a full-plane lcc_call;
  23. the s21 cycle search on the 4-shard mesh, nlcc_mode="device" (the
      mesh NLCC routes the tokens), one run: 169/346/56 and 105,906,296,
      no host fallback, the walk kernels' launches and each constraint's
-     seconds;
+     seconds; the share of payload words that send in each superstep of
+     a full-plane lcc_call on its mesh engine;
  24. the mesh across processes: the s21 graph of phase 5 goes to 2
      processes as .npy files in a temporary directory; the port's launcher
      (cli/launch_multiprocess.py) starts them with one card visible, so
@@ -115,7 +123,7 @@ NVIDIA GPU:
      timed. Their rows equal those of the one-process 4-shard mesh of
      phase 22 (which runs the same calls), each shard's final tv block and
      alive slots equal that mesh's byte for byte, and each process
-     launched the payload kernel; the per-superstep times of both, and the
+     launched both mesh kernels; the per-superstep times of both, and the
      bytes each process sent across the process boundary;
  25. the same with 2 cards visible, where the machine has them: the same
      rule then gives one process per card over NCCL, 2 shards each; on one
@@ -126,9 +134,9 @@ without a CUDA device or without the rest of the repository. The last two
 lines are one JSON object with a record per kernel (launches during the
 main-path search: the s21 tree search for the superstep kernels, the s21
 cycle device search for the walk kernels; largest difference from the
-twin, times and the least time the card could take; the payload variant's
-launches are those of the phase 22 full-plane search) and the result line
-``{"ok": true, ...}``.
+twin, times and the least time the card could take; the mesh superstep's
+kernels' launches are those of the phase 22 full-plane search) and the
+result line ``{"ok": true, ...}``.
 
 Usage: python3 chip_smoke.py   (from the repository root; one CUDA card)
 (``chip_smoke.py --mesh-child DIR ...`` is phase 24-25's per-process
@@ -178,6 +186,7 @@ from fuzzypatternmatching_tpu_torch.utils.dist import (
     add_distributed_args,
     build_mesh,
     init_distributed,
+    print_line,
 )
 
 S21_ANCHORS = {
@@ -215,6 +224,9 @@ KERNELS = {
     # the same Pallas kernel's arithmetic on payload words, as the mesh
     # superstep (parallel/sharded.py:829-977) wraps it
     "gather_accept_or_payload": "fuzzypatternmatching_tpu/ops/lcc_superstep.py:105",
+    # the superstep's sends test on payload words (jnp, not a Pallas kernel),
+    # packed into the table that gates the gather above
+    "pack_sends": "fuzzypatternmatching_tpu/parallel/sharded.py:903",
     "expand_frontier": "fuzzypatternmatching_tpu/engine/nlcc_device.py:105",
     "forward_winners": "fuzzypatternmatching_tpu/engine/nlcc_device.py:188",
 }
@@ -226,10 +238,12 @@ KERNEL_SOURCES = {
 }
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 DENSITIES = (0.005, 0.6, 1.0)
-# the bucketed engine's kernels (phases 5-7); the payload variant runs on
-# the mesh (phases 20-22)
+# the bucketed engine's kernels (phases 5-7)
 BUCKET_KERNELS = ("pack_alive", "rev_alive_lookup", "gather_accept_or")
+# the mesh superstep's kernels (phases 20-24)
 PAYLOAD = "gather_accept_or_payload"
+SENDS = "pack_sends"
+MESH_KERNELS = (SENDS, PAYLOAD)
 MESH_SHARDS = 4  # the s21 mesh of phases 22-23, on the one card
 # phases 24-25: 2 processes x 2 shards (the 4 shards of phase 22's mesh)
 MESH_PROCESSES = 2
@@ -238,9 +252,7 @@ CHILD_TIMEOUT = 420  # seconds the launcher and its processes may take
 
 
 def log(msg):
-    # one write a line: the processes of phases 24-25 share one pipe
-    sys.stdout.write(f"{msg}\n")
-    sys.stdout.flush()
+    print_line(msg)  # the processes of phases 24-25 share one pipe
 
 
 def summary(r):
@@ -1534,32 +1546,41 @@ def run_cli_s13(golden, card="cuda"):
 
 
 class PayloadCheck:
-    """Wraps the mesh engine's ``gather_accept_or``: every payload call also
-    runs the twin on the same inputs and records the largest difference;
-    with ``keep`` the calls' inputs are kept (for timing)."""
+    """Wraps the mesh engine's ``gather_accept_or_payload`` and the
+    ``sends_table`` it packs with: every call also runs its twin on the
+    same inputs and records the largest difference; with ``keep`` each
+    gather call's inputs (revmap, masks, payload, buckets) are kept, for
+    timing."""
 
     def __init__(self, errs, keep=False):
         self.errs, self.keep, self.calls, self.n = errs, keep, [], 0
+        self.real = ops.sends_table, sharded_lcc.gather_accept_or_payload
 
     def __enter__(self):
-        real = ops.gather_accept_or
+        real_sends, real_gather = self.real
 
-        def call(adj, alive_rev, mask, table, *, payload=False):
-            out = real(adj, alive_rev, mask, table, payload=payload)
-            if payload:
-                want = ops.gather_accept_or_payload_reference(adj, mask, table)
-                for g, r in zip(out, want):
-                    self.errs[PAYLOAD] = max(self.errs[PAYLOAD], max_err(g, r))
-                self.n += 1
-                if self.keep:
-                    self.calls.append((adj, mask, table))
+        def sends(payload, *budget):
+            out = real_sends(payload, *budget)
+            want = ops.sends_table_reference(payload, *budget)
+            self.errs[SENDS] = max(self.errs[SENDS], table_err(out, want))
             return out
 
-        sharded_lcc.gather_accept_or = call
+        def gather(revmap, masks, payload, buckets):
+            out = real_gather(revmap, masks, payload, buckets)
+            want = ops.gather_accept_or_payload_reference(revmap, masks, payload, buckets)
+            for g, r in zip(out, want):
+                self.errs[PAYLOAD] = max(self.errs[PAYLOAD], max_err(g, r))
+            self.n += 1
+            if self.keep:
+                self.calls.append((revmap, masks, payload, buckets))
+            return out
+
+        ops.sends_table = sends  # what the gather's wrapper packs with
+        sharded_lcc.gather_accept_or_payload = gather
         return self
 
     def __exit__(self, *exc):
-        sharded_lcc.gather_accept_or = ops.gather_accept_or
+        ops.sends_table, sharded_lcc.gather_accept_or_payload = self.real
 
 
 def split_rows(g, n):
@@ -1570,30 +1591,66 @@ def split_rows(g, n):
     return int(np.sum(g.edge_row[cuts - 1] == g.edge_row[cuts]))
 
 
+def payload_words(rng, S, density):
+    """Payload words alive << 31 | tv, uint32 [S + 1], the last the
+    appended zero word; a tenth of tv is 0, so INT_MIN words (alive, no
+    candidates) occur."""
+    tv = rng.randint(0, 1 << 16, size=S + 1).astype(np.uint32)
+    tv[rng.rand(S + 1) < 0.1] = 0
+    alive = rng.rand(S + 1) < density
+    payload = tv | (alive.astype(np.uint32) << np.uint32(31))
+    payload[S] = 0
+    return payload
+
+
+def bucket_case(rng, S, density, rows, mask_kind):
+    """A shard's bucket table over widths 1 and the mesh engine's WIDTHS,
+    with ``rows(i)`` rows at the i-th width: (payload, buckets, revmap,
+    masks); pad sentinels read the appended zero word."""
+    payload = payload_words(rng, S, density)
+    buckets, revmaps, masks = [], [], []
+    for i, w in enumerate((1,) + tuple(sharded_lcc.WIDTHS)):
+        nb = rows(i)
+        adj = rng.randint(0, S + 1, size=(nb, w)).astype(np.int32)
+        adj[:, -1] = S
+        buckets.append((w, nb))
+        revmaps.append(adj.reshape(-1))
+        masks.append({"random": rng.randint(0, 1 << 16, size=nb), "zero": np.zeros(nb),
+                      "one": np.full(nb, 0xFFFF)}[mask_kind].astype(np.int32))
+    return payload, buckets, np.concatenate(revmaps), np.concatenate(masks)
+
+
 def compare_payload_small(dev, golden, errs):
-    """Phase 20: the payload kernel against its twin on seeded inputs, and
-    on every call of a tree_s13 full-plane search on 4 shards."""
-    widths = (1, 2, 4) + tuple(sharded_lcc.WIDTHS)
-    S = 70000
-    for density in (0.0,) + DENSITIES:
-        for w in widths:
-            for n in (0, 1, 33, 1000):
-                rng = np.random.RandomState(n * 17 + w)
-                tv = rng.randint(0, 1 << 16, size=S + 1).astype(np.uint32)
-                tv[rng.rand(S + 1) < 0.3] = 0
-                alive = rng.rand(S + 1) < density
-                payload = tv | (alive.astype(np.uint32) << np.uint32(31))
-                payload[S] = 0
-                adj = rng.randint(0, S + 1, size=(n, w)).astype(np.int32)
-                adj[:, -1] = S  # pad sentinel reads the appended zero word
-                mask = rng.randint(0, 1 << 16, size=n).astype(np.int32)
+    """Phase 20: the mesh superstep's kernels against their twins on seeded
+    inputs, and on every call of a tree_s13 full-plane search on 4 shards."""
+    sizes = ((1, ops.SUMMARY_BUDGET_BYTES), (33, ops.SUMMARY_BUDGET_BYTES),
+             (1000, ops.SUMMARY_BUDGET_BYTES), (5000, 16), (70001, 64),
+             ((1 << 22) + 5, ops.SUMMARY_BUDGET_BYTES))
+    densities = (0.0,) + DENSITIES
+    for density in densities:
+        for n, budget in sizes:
+            rng = np.random.RandomState(n + budget)
+            words = payload_words(rng, n - 1, density) if n > 1 else np.zeros(1, np.uint32)
+            table = torch.from_numpy(words.view(np.int32)).to(dev)
+            got = ops.sends_table(table, budget)
+            torch.cuda.synchronize()
+            errs[SENDS] = max(errs[SENDS], table_err(got, ops.sends_table_reference(table, budget)))
+        for k in range(4):  # each width gets 0, 1, 33 and 1000 rows over k
+            for mask_kind in ("random", "zero", "one"):
+                rng = np.random.RandomState(31 * k + len(mask_kind))
+                payload, buckets, revmap, masks = bucket_case(
+                    rng, 60000, density, lambda i: (0, 1, 33, 1000)[(i + k) % 4], mask_kind
+                )
                 table = torch.from_numpy(payload.view(np.int32)).to(dev)
-                adj_d = torch.from_numpy(adj).to(dev)
-                for m in (mask, np.zeros_like(mask), np.full_like(mask, 0xFFFF)):
-                    m_d = torch.from_numpy(m).to(dev)
-                    got = ops.gather_accept_or(adj_d, None, m_d, table, payload=True)
+                sends = ops.sends_table(table)
+                m_d = torch.from_numpy(masks).to(dev)
+                buf = torch.from_numpy(np.concatenate([[0], revmap]).astype(np.int32)).to(dev)
+                # 16-byte aligned and packing in the call, then not aligned
+                # and through the table packed above
+                for r_d, st in ((buf[1:].clone(), None), (buf[1:], sends)):
+                    got = ops.gather_accept_or_payload(r_d, m_d, table, buckets, sends=st)
                     torch.cuda.synchronize()
-                    want = ops.gather_accept_or_payload_reference(adj_d, m_d, table)
+                    want = ops.gather_accept_or_payload_reference(r_d, m_d, table, buckets)
                     for g, r in zip(got, want):
                         errs[PAYLOAD] = max(errs[PAYLOAD], max_err(g, r))
     check_errs(errs, "at small shapes")
@@ -1611,11 +1668,13 @@ def compare_payload_small(dev, golden, errs):
     check_anchors(r, {k: cfg[k] for k in ("active_vertices", "active_edges", "subgraphs")},
                   "tree_s13 on 4 shards")
     check_errs(errs, "in the tree_s13 mesh search")
-    log(f"[20] payload kernel equals its twin (widths {widths[0]}..{widths[-1]}, n "
-        f"0/1/33/1000, alive densities {(0.0,) + DENSITIES}, pad words, zero/full "
-        f"masks; and all {chk.n} calls of a tree_s13 full-plane search on "
-        f"{MESH_SHARDS} shards, {n_split} rows split across shards): "
-        f"max_abs_err {errs[PAYLOAD]}")
+    log(f"[20] pack_sends equals its twin (tables of {[n for n, _ in sizes]} words, G 32 "
+        f"and 64, INT_MIN and zero pad words, alive densities {densities}) and "
+        f"gather_accept_or_payload its twin (one call over buckets of widths 1 and "
+        f"{sharded_lcc.WIDTHS[0]}..{sharded_lcc.WIDTHS[-1]} with 0/1/33/1000 rows, "
+        f"random/zero/full masks, index planes aligned and not); and all {chk.n} gather "
+        f"calls of a tree_s13 full-plane search on {MESH_SHARDS} shards, {n_split} rows "
+        f"split across shards: max_abs_err {errs[SENDS]} / {errs[PAYLOAD]}")
 
 
 def mesh_dryrun(golden, dev):
@@ -1654,20 +1713,93 @@ def mesh_dryrun(golden, dev):
 
 
 def payload_bound_ms(calls):
-    """Least time of the payload kernel's calls: each input read once (the
-    index planes, the row masks, and each distinct payload word they
-    gather), each output written once (accept, tn, sendok)."""
+    """Least time of the mesh superstep's payload gather as a function of
+    its index planes, row masks and payload tables, packs included: each
+    input read once (the index planes, the row masks, and each distinct
+    payload word they reach), each output written once (accept, tn,
+    sendok)."""
     nbytes = 0
-    for adj, mask, table in calls:
-        n, w = adj.shape
-        nbytes += 5 * n * w + 12 * n + 4 * int(torch.unique(adj).numel())
+    for revmap, masks, _, _ in calls:
+        nbytes += 5 * revmap.numel() + 12 * masks.numel() + 4 * int(torch.unique(revmap).numel())
     return nbytes / HBM_BYTES_PER_MS, nbytes
 
 
+def gather_bound_ms(calls, tables):
+    """Least time of the gather kernels alone, given the packed sends
+    tables: the index planes read and accept written (5 bytes a slot), the
+    row masks read and tn and sendok written (12 bytes a row), the summary
+    read, the distinct sends words that slots in a set summary group reach,
+    and the distinct payload words that send."""
+    nbytes = 0
+    for (revmap, masks, payload, _), tab in zip(calls, tables):
+        idx = revmap.long()
+        grp = idx >> tab.group_log2
+        gated = idx[((tab.summary[grp >> 5] >> (grp & 31)) & 1) != 0]
+        word = payload[gated]
+        sending = gated[(word < 0) & (word != ops.INT32_MIN)]
+        nbytes += (5 * revmap.numel() + 12 * masks.numel() + 4 * tab.summary.numel()
+                   + 4 * int(torch.unique(gated >> 5).numel())
+                   + 4 * int(torch.unique(sending).numel()))
+    return nbytes / HBM_BYTES_PER_MS, nbytes
+
+
+def sends_share(calls):
+    """(payload words, of them sending, slots, of them reading a sending
+    word) over one superstep's gather calls."""
+    words = sending = slots = reads = 0
+    for revmap, _, payload, _ in calls:
+        sends = (payload < 0) & (payload != ops.INT32_MIN)
+        words += payload.numel()
+        sending += int(sends.sum())
+        slots += revmap.numel()
+        reads += int(sends[revmap.long()].sum())
+    return words, sending, slots, reads
+
+
+def sends_bound_ms(calls):
+    """Least time of the packs: each payload word read once, the sends
+    words and the summary written once."""
+    nbytes = 0
+    for _, _, payload, _ in calls:
+        n = payload.numel()
+        g = ops.summary_group_log2(n)
+        nbytes += 4 * n + 4 * -(-n // 32) + 4 * ops._summary_words(n, g)
+    return nbytes / HBM_BYTES_PER_MS, nbytes
+
+
+def time_mesh_gather(calls):
+    """Phase 22's kernel timings on one full-plane mesh superstep's calls
+    (one per shard), by CUDA-graph replay: the pair (every pack and gather),
+    each part alone, the twins, and the pair with every word alive and with
+    every word sending."""
+    sends = [ops.sends_table(t) for _, _, t, _ in calls]
+    # every word alive (words with tv 0 still send nothing), and every word
+    # sending (bit 0 set too), where the gate can skip nothing
+    alive = [(r, m, t | ops.INT32_MIN, b) for r, m, t, b in calls]
+    every = [(r, m, t | (ops.INT32_MIN | 1), b) for r, m, t, b in calls]
+
+    def pair(cs):
+        return lambda: [ops.gather_accept_or_payload(r, m, t, b) for r, m, t, b in cs]
+
+    out = {"sends": sends}
+    out["pair"], out["twin"], out["raw"] = time_pair(pair(calls), lambda: [
+        ops.gather_accept_or_payload_reference(r, m, t, b) for r, m, t, b in calls])
+    out["pack"], out["pack_twin"], _ = time_pair(
+        lambda: [ops.sends_table(t) for _, _, t, _ in calls],
+        lambda: [ops.sends_table_reference(t) for _, _, t, _ in calls])
+    out["gather"] = time_cuda(lambda: [ops.gather_accept_or_payload(r, m, t, b, sends=st)
+                                       for (r, m, t, b), st in zip(calls, sends)])
+    out["pair_alive"] = time_cuda(pair(alive))
+    out["pair_every"] = time_cuda(pair(every))
+    out["sends_alive"] = sends_share(alive)[1]
+    return out
+
+
 def run_s21_mesh(g, labels, pattern, constraints, dev, errs):
-    """Phase 22: the s21 tree search on a 4-shard mesh. Returns the payload
-    kernel's (ms, plain ms, bound ms) and its launches per full-plane
-    search."""
+    """Phase 22: the s21 tree search on a 4-shard mesh. Returns the mesh
+    kernels' (ms, plain ms, bound ms, library ms), their launches per
+    full-plane search, and phase 24's reference (the one-process mesh's
+    lcc_call rows, final shards and times)."""
     mesh = build_mesh(shards=MESH_SHARDS, device=dev)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1699,7 +1831,7 @@ def run_s21_mesh(g, labels, pattern, constraints, dev, errs):
                 f"other {dt - lp - tp:.4f} s), {r.traversed_edges / dt / 1e6:.2f} M "
                 f"traversed edges/s, LP rows {len(lp_rows(r))}, host loadavg {os.getloadavg()}")
     check_errs(errs, "in the s21 mesh searches")
-    need = {"compact": BUCKET_KERNELS, "full plane": (PAYLOAD,)}
+    need = {"compact": BUCKET_KERNELS, "full plane": MESH_KERNELS}
     for what, names in need.items():
         for k in names:
             if launches[what][k] == 0:
@@ -1707,7 +1839,8 @@ def run_s21_mesh(g, labels, pattern, constraints, dev, errs):
     log(f"[22] anchors OK on every run {S21_ANCHORS}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
-    # one full-plane superstep at the post-init state: every payload call
+    # one full-plane superstep at the post-init state: every call of the
+    # mesh kernels, checked against the twins and kept for timing
     st, _, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
     with PayloadCheck(errs, keep=True) as chk:
         lcc._superstep(st.tv, st.alive, st.tp_flag, init=False)
@@ -1715,20 +1848,38 @@ def run_s21_mesh(g, labels, pattern, constraints, dev, errs):
     check_errs(errs, "at s21 (one mesh superstep)")
     calls = chk.calls
     bound, nbytes = payload_bound_ms(calls)
-    k_ms, p_ms, raw = time_pair(
-        lambda: [ops.gather_accept_or(a, None, m, t, payload=True) for a, m, t in calls],
-        lambda: [ops.gather_accept_or_payload_reference(a, m, t) for a, m, t in calls],
-    )
+    pack_bound, pack_bytes = sends_bound_ms(calls)
+    t = time_mesh_gather(calls)
+    gather_bound, gather_bytes = gather_bound_ms(calls, t["sends"])
     step_ms = time_cuda(lambda: lcc._superstep(st.tv, st.alive, st.tp_flag, init=False),
                         reps=3, graph=False)
-    slots = sum(a.numel() for a, _, _ in calls)
-    sent = sum(int((t[a.long()] < 0).sum()) for a, _, t in calls)
-    log(f"[22] payload kernel, one full-plane superstep at the post-init state "
-        f"({len(calls)} calls: {MESH_SHARDS} shards x {len(lcc.ell_buckets)} buckets, "
-        f"{slots} slots, {sent} reading an alive word): kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
-        f"twin {raw[2]:.4f}/{raw[3]:.4f} ms, bound {bound:.4f} ms ({nbytes} B, bytes), "
-        f"{100 * bound / k_ms:.1f} % of bound; library call: none; the whole mesh "
-        f"superstep (eager, host dispatch included) {step_ms:.3f} ms")
+    slots = sum(r.numel() for r, _, _, _ in calls)
+    sent = sum(int((p[r.long()] < 0).sum()) for r, _, p, _ in calls)
+    words, sending, _, reads = sends_share(calls)
+    groups = []
+    for (_, _, p, _), tab in zip(calls, t["sends"]):
+        bits = torch.stack([(tab.summary >> k) & 1 for k in range(32)], dim=1).reshape(-1)
+        groups.append((int(bits.sum()), -(-p.numel() >> tab.group_log2), 1 << tab.group_log2))
+    n_calls = len(calls)
+    log(f"[22] mesh superstep gather at the post-init state ({n_calls} shards x "
+        f"{len(lcc.ell_buckets)} buckets, {slots} slots, {sent} reading an alive word and "
+        f"{reads} a sending one; payload tables {words} words, {sending} of them sending "
+        f"({100 * sending / words:.3f} %); summary groups set / all (G) per shard {groups}): "
+        f"the pair ({n_calls} pack_sends + {n_calls} gather_accept_or_payload) "
+        f"{t['raw'][0]:.4f}/{t['raw'][1]:.4f} ms against the bound of the whole function "
+        f"{bound:.4f} ms ({nbytes} B, bytes): {100 * bound / t['pair']:.1f} % of bound; pack "
+        f"alone {t['pack']:.4f} ms (its bound {pack_bound:.4f} ms, {pack_bytes} B, "
+        f"{100 * pack_bound / t['pack']:.1f} %; twin {t['pack_twin']:.4f} ms), gather alone "
+        f"{t['gather']:.4f} ms (its bound {gather_bound:.4f} ms, {gather_bytes} B, "
+        f"{100 * gather_bound / t['gather']:.1f} %); twin {t['raw'][2]:.4f}/{t['raw'][3]:.4f} "
+        f"ms; library call: none")
+    log(f"[22] with every payload word alive ({t['sends_alive']} of them sending): the pair "
+        f"{t['pair_alive']:.4f} ms; with every word sending: the pair {t['pair_every']:.4f} ms")
+    log(f"[22] the whole mesh superstep (eager, host dispatch included) {step_ms:.3f} ms")
+    log(f"[22] s21 tree, full-plane lcc_call on the mesh: the payload words that send and "
+        f"the slots that read one, % per non-init superstep: {sends_by_superstep(lcc, errs)}")
+    times = {SENDS: (t["pack"], t["pack_twin"], pack_bound, None),
+             PAYLOAD: (t["gather"], t["twin"], gather_bound, None)}
     del calls, chk, st
 
     # what phase 24's processes run, on this one-process mesh
@@ -1739,12 +1890,28 @@ def run_s21_mesh(g, labels, pattern, constraints, dev, errs):
         f"supersteps, the reference of phase 24): timed {[round(t, 3) for t in ms]} ms, "
         f"{min(ms) / len(rows):.3f} ms a superstep; a non-init superstep's exchanges "
         f"alone {ref['exchange_ms']:.3f} ms; rows {[r[:3] for r in rows]}")
-    return (k_ms, p_ms, bound, None), launches["full plane"][PAYLOAD], ref
+    return times, {k: launches["full plane"][k] for k in MESH_KERNELS}, ref
 
 
-def run_s21_mesh_cycle(g, labels, dev):
+def sends_by_superstep(lcc, errs):
+    """One full-plane lcc_call from the init state, each payload-gather
+    call checked against the twins: per superstep that gathers, the share
+    (%) of the payload words that send and of the slots that read one."""
+    with PayloadCheck(errs, keep=True) as chk:
+        lcc.lcc_call(lcc.init_state(), True)
+        torch.cuda.synchronize()
+    check_errs(errs, "in a full-plane mesh lcc_call")
+    n = lcc.mesh.local
+    out = []
+    for i in range(0, len(chk.calls), n):
+        words, sending, slots, reads = sends_share(chk.calls[i : i + n])
+        out.append((round(100 * sending / words, 4), round(100 * reads / slots, 4)))
+    return out
+
+
+def run_s21_mesh_cycle(g, labels, dev, errs):
     """Phase 23: the s21 cycle search on the 4-shard mesh with the mesh
-    NLCC, one run."""
+    NLCC, one run; and the sending share of its full-plane supersteps."""
     pattern = load_pattern_graph(CYCLE_CORPUS)
     constraints = load_nonlocal_constraints(CYCLE_CORPUS, pattern.vertex_data)
     t0 = time.perf_counter()
@@ -1766,6 +1933,9 @@ def run_s21_mesh_cycle(g, labels, dev):
         f"{summary(r)}, anchors OK {S21_CYCLE_ANCHORS}, nlcc_fallbacks 0; kernel launches "
         f"{dict(ops.launches)}, walk kernel launches {walk}; TP rows (iteration, "
         f"constraint, seconds, messages) {tp_rows(r)}")
+    log(f"[23] s21 cycle, full-plane lcc_call on the mesh: the payload words that send "
+        f"and the slots that read one, % per non-init superstep: "
+        f"{sends_by_superstep(engine.lcc, errs)}")
 
 
 def time_lcc_calls(lcc, calls=3):
@@ -1848,13 +2018,13 @@ def mesh_child(argv) -> int:
         build_s = time.perf_counter() - t0
         ops.reset_launches()
         rows, died, st, ms, cross = time_lcc_calls(lcc)
-        launches = ops.launches[PAYLOAD]
+        launches = {k: ops.launches[k] for k in MESH_KERNELS}
         exchange_ms = time_exchanges(lcc)
         log(f"{tag} process {pid}: {mesh}, engine build {build_s:.3f} s; lcc_call "
             f"({len(rows)} supersteps) timed {[round(t, 3) for t in ms]} ms, "
             f"{min(ms) / len(rows):.3f} ms a superstep; a non-init superstep's exchanges "
             f"alone {exchange_ms:.3f} ms; bytes sent to the other process per call "
-            f"{cross} ({cross[-1] / len(rows):.0f} a superstep); payload kernel "
+            f"{cross} ({cross[-1] / len(rows):.0f} a superstep); mesh kernel "
             f"launches {launches}")
         res = {"backend": backend, "card": torch.cuda.current_device(),
                "rows": mesh_rows(rows), "died": died, "ms": ms, "cross": cross,
@@ -1916,8 +2086,8 @@ def run_mesh_processes(g, labels, ref, cards, backend, tag):
                 raise AssertionError(f"{tag} process {pid}: shard {r}'s final tv or alive "
                                      "differs from the one-process mesh's")
             seen.append(r)
-        if res["launches"] < 1:
-            raise AssertionError(f"{tag} process {pid}: no launch of the payload kernel")
+        if min(res["launches"].values()) < 1:
+            raise AssertionError(f"{tag} process {pid}: mesh kernel launches {res['launches']}")
     if sorted(seen) != list(range(MESH_SHARDS)):
         raise AssertionError(f"{tag}: the processes held shards {sorted(seen)}")
     steps = len(ref["rows"])
@@ -1927,7 +2097,7 @@ def run_mesh_processes(g, labels, ref, cards, backend, tag):
     log(f"{tag} {MESH_PROCESSES} processes x {MESH_SHARDS // MESH_PROCESSES} shards over "
         f"{backend} on cards {[res['card'] for res in results]}{how}: "
         f"rows equal the one-process mesh's, and every shard's final tv and alive slots byte "
-        f"for byte; payload kernel launches per process {[res['launches'] for res in results]}; "
+        f"for byte; mesh kernel launches per process {[res['launches'] for res in results]}; "
         f"ms a superstep per process {[round(x, 3) for x in per_step]} against "
         f"{min(ref['ms']) / steps:.3f} on the one-process mesh; a non-init superstep's "
         f"exchanges alone {[round(res['exchange_ms'], 3) for res in results]} ms against "
@@ -2030,11 +2200,11 @@ def main() -> int:
     t0 = time.perf_counter()
     compare_payload_small(dev, golden, errs)
     mesh_dryrun(golden, dev)
-    times[PAYLOAD], launches[PAYLOAD], ref = run_s21_mesh(
-        g, labels, pattern, constraints, dev, errs
-    )
+    mesh_times, mesh_launches, ref = run_s21_mesh(g, labels, pattern, constraints, dev, errs)
+    times.update(mesh_times)
+    launches.update(mesh_launches)
     torch.cuda.empty_cache()
-    run_s21_mesh_cycle(g, labels, dev)
+    run_s21_mesh_cycle(g, labels, dev, errs)
     torch.cuda.empty_cache()
     log(f"[20-23] the multi-device plane's phases took {time.perf_counter() - t0:.1f} s")
 

@@ -40,6 +40,7 @@ from ..utils.dist import (
     build_mesh,
     cpu_shards_from_env,
     init_distributed,
+    print_line,
 )
 
 
@@ -68,8 +69,7 @@ def main(argv=None) -> int:
     try:
         mesh = build_mesh(device=device)
         pid = mesh.process_index
-        print(f"[proc {pid}] {mesh.processes} processes, {mesh.n} global shards, "
-              f"{mesh}", flush=True)
+        print_line(f"[proc {pid}] {mesh.processes} processes, {mesh.n} global shards, {mesh}")
         g = s11_graph()
         labels = degree_labels(g)
         with tempfile.TemporaryDirectory() as tmp:
@@ -78,7 +78,7 @@ def main(argv=None) -> int:
         eng = ShardedLccEngine(g, labels, pattern, mesh=mesh)
         _, rows, _ = eng.lcc_call(eng.init_state(), True)
         trace = [(av, ae, msgs) for av, ae, msgs, _ in rows]
-        print(f"[proc {pid}] LP trace: {trace}", flush=True)
+        print_line(f"[proc {pid}] LP trace: {trace}")
 
         if pid == 0:
             r = MatchOracle(g, labels, pattern, []).run(max_iterations=1)
@@ -88,12 +88,11 @@ def main(argv=None) -> int:
                 if row.phase == "LP"
             ][: len(trace)]
             if trace != want:
-                print(f"FAIL: mesh trace {trace} != oracle {want}", flush=True)
+                print_line(f"FAIL: mesh trace {trace} != oracle {want}")
                 return 1
-            print(
+            print_line(
                 f"PASS: {mesh.processes}-process sharded LCC matches the "
-                f"oracle trace ({len(trace)} supersteps)",
-                flush=True,
+                f"oracle trace ({len(trace)} supersteps)"
             )
     finally:
         if dist.is_initialized():

@@ -17,9 +17,10 @@
 //   * rev_alive_lookup stages the summary in shared memory and reads a
 //     word from L2 only where the slot's group has an alive bit.
 //   * gather_accept_or reads adj and the tv table only where alive_rev is
-//     set; elsewhere the slot's outputs are zero by definition. Its payload
-//     variant (the multi-device plane's superstep) reads the alive bit from
-//     bit 31 of the gathered word instead of a separate plane.
+//     set; elsewhere the slot's outputs are zero by definition.
+//
+// The multi-device plane's superstep has kernels of its own at the end of
+// the file (pack_sends and gather_payload).
 //
 // Plain C entry points (bound with ctypes): each launches on the stream it
 // is given, allocates nothing, does not synchronise, and returns
@@ -256,36 +257,17 @@ rev_alive_kernel(const int32_t* __restrict__ rev,
 //     (w a multiple of 512: one 16-byte alive_rev load and store), a row
 //     takes 1, 2, 4 or 8 warps (partial results meet in shared memory), and
 //     two steps are loaded before either is used.
-//   * otherwise (the half-step widths 12, 24, 48, 96 and 192 of the payload
-//     variant; unaligned planes): a warp per row, its lanes striding 32
-//     slots.
-//
-// The payload variant (kPayload = true), for the multi-device plane
-// (fuzzypatternmatching_tpu/parallel/sharded.py:829-977, the superstep's
-// per-bucket loop around the same arithmetic): there is no alive_rev plane.
-// The table holds one word per reverse-edge slot, alive << 31 | tv of the
-// slot's row, and adj indexes it (the halo's revmap; pad slots index an
-// appended zero word). A slot sends where the gathered word has bit 31 set
-// and nonzero low bits; p is then the low 31 bits. The same lane mappings
-// serve both variants: in the payload variant every flag reads as set, so
-// adj and the table are read for every slot. Bound by bytes: per slot 4
-// bytes of adj read and 1 byte of accept written, one table word per
-// distinct slot gathered, 12 bytes per row.
+//   * otherwise (off the engine's path: other widths, unaligned planes): a
+//     warp per row, its lanes striding 32 slots.
 
 struct RowAcc {
     uint32_t tn = 0;
     uint32_t count = 0;
 };
 
-template <bool kPayload>
 __device__ __forceinline__ uint32_t slot(int32_t a, const int32_t* __restrict__ tv_table,
                                          uint32_t m, RowAcc& acc) {
-    uint32_t p = static_cast<uint32_t>(__ldg(tv_table + a));
-    if (kPayload) {
-        // bit 31: the sender's edge is alive; the low bits: its row's tv
-        if ((p & 0x80000000u) == 0) return 0u;
-        p &= 0x7fffffffu;
-    }
+    const uint32_t p = static_cast<uint32_t>(__ldg(tv_table + a));
     if (p == 0) return 0u;
     acc.count += 1;
     if ((p & m) == 0) return 0u;
@@ -294,7 +276,6 @@ __device__ __forceinline__ uint32_t slot(int32_t a, const int32_t* __restrict__ 
 }
 
 // 4 slots s..s+3 whose alive_rev bytes are f: accept bytes of the 4 slots
-template <bool kPayload>
 __device__ __forceinline__ uint32_t slots4(const int32_t* __restrict__ adj, int64_t s,
                                            uint32_t f,
                                            const int32_t* __restrict__ tv_table,
@@ -302,14 +283,12 @@ __device__ __forceinline__ uint32_t slots4(const int32_t* __restrict__ adj, int6
     if (f == 0) return 0u;
     const int4 a = __ldcs(reinterpret_cast<const int4*>(adj + s));
     uint32_t out = 0;
-    if (f & 0x000000ffu) out |= slot<kPayload>(a.x, tv_table, m, acc);
-    if (f & 0x0000ff00u) out |= slot<kPayload>(a.y, tv_table, m, acc) << 8;
-    if (f & 0x00ff0000u) out |= slot<kPayload>(a.z, tv_table, m, acc) << 16;
-    if (f & 0xff000000u) out |= slot<kPayload>(a.w, tv_table, m, acc) << 24;
+    if (f & 0x000000ffu) out |= slot(a.x, tv_table, m, acc);
+    if (f & 0x0000ff00u) out |= slot(a.y, tv_table, m, acc) << 8;
+    if (f & 0x00ff0000u) out |= slot(a.z, tv_table, m, acc) << 16;
+    if (f & 0xff000000u) out |= slot(a.w, tv_table, m, acc) << 24;
     return out;
 }
-
-constexpr uint32_t kAllSet = 0x01010101u;  // four set flag bytes
 
 // V consecutive slots per lane: the alive_rev load, the gated work and the
 // accept store of one lane's step
@@ -319,42 +298,35 @@ struct Lane;
 template <>
 struct Lane<4> {
     using F = uint32_t;
-    // the payload variant has no alive_rev plane: every flag reads as set
-    template <bool kPayload>
     static __device__ __forceinline__ F load(const uint8_t* p, int64_t s) {
-        if constexpr (kPayload) return kAllSet;
-        else return __ldcs(reinterpret_cast<const uint32_t*>(p + s));
+        return __ldcs(reinterpret_cast<const uint32_t*>(p + s));
     }
     static __device__ __forceinline__ void store(uint8_t* p, int64_t s, F v) {
         __stcs(reinterpret_cast<uint32_t*>(p + s), v);
     }
-    template <bool kPayload>
     static __device__ __forceinline__ F run(const int32_t* __restrict__ adj, int64_t s,
                                             F f, const int32_t* __restrict__ tv,
                                             uint32_t m, RowAcc& acc) {
-        return slots4<kPayload>(adj, s, f, tv, m, acc);
+        return slots4(adj, s, f, tv, m, acc);
     }
 };
 
 template <>
 struct Lane<16> {
     using F = uint4;
-    template <bool kPayload>
     static __device__ __forceinline__ F load(const uint8_t* p, int64_t s) {
-        if constexpr (kPayload) return make_uint4(kAllSet, kAllSet, kAllSet, kAllSet);
-        else return __ldcs(reinterpret_cast<const uint4*>(p + s));
+        return __ldcs(reinterpret_cast<const uint4*>(p + s));
     }
     static __device__ __forceinline__ void store(uint8_t* p, int64_t s, F v) {
         __stcs(reinterpret_cast<uint4*>(p + s), v);
     }
-    template <bool kPayload>
     static __device__ __forceinline__ F run(const int32_t* __restrict__ adj, int64_t s,
                                             F f, const int32_t* __restrict__ tv,
                                             uint32_t m, RowAcc& acc) {
-        return make_uint4(slots4<kPayload>(adj, s, f.x, tv, m, acc),
-                          slots4<kPayload>(adj, s + 4, f.y, tv, m, acc),
-                          slots4<kPayload>(adj, s + 8, f.z, tv, m, acc),
-                          slots4<kPayload>(adj, s + 12, f.w, tv, m, acc));
+        return make_uint4(slots4(adj, s, f.x, tv, m, acc),
+                          slots4(adj, s + 4, f.y, tv, m, acc),
+                          slots4(adj, s + 8, f.z, tv, m, acc),
+                          slots4(adj, s + 12, f.w, tv, m, acc));
     }
 };
 
@@ -366,7 +338,6 @@ __device__ __forceinline__ void store_row(int32_t* __restrict__ tn,
 }
 
 // One 128-slot chunk of the 4 <= w <= 64 kernel: lane's slots s..s+3.
-template <bool kPayload>
 __device__ __forceinline__ void narrow4_chunk(const int32_t* __restrict__ adj,
                                               const int32_t* __restrict__ mask,
                                               const int32_t* __restrict__ tv_table,
@@ -379,7 +350,7 @@ __device__ __forceinline__ void narrow4_chunk(const int32_t* __restrict__ adj,
     RowAcc acc;
     if (s < total) {
         const uint32_t m = f != 0 ? static_cast<uint32_t>(mask[row]) : 0u;
-        Lane<4>::store(accept, s, slots4<kPayload>(adj, s, f, tv_table, m, acc));
+        Lane<4>::store(accept, s, slots4(adj, s, f, tv_table, m, acc));
     }
     for (int off = (1 << w_log2) >> 3; off > 0; off >>= 1) {  // w/4 lanes
         acc.tn |= __shfl_xor_sync(kFull, acc.tn, off);
@@ -388,7 +359,6 @@ __device__ __forceinline__ void narrow4_chunk(const int32_t* __restrict__ adj,
     if (s < total && (s & ((int64_t(1) << w_log2) - 1)) == 0) store_row(tn, sendok, row, acc);
 }
 
-template <bool kPayload>
 __global__ void gather_narrow4_kernel(const int32_t* __restrict__ adj,
                                       const uint8_t* __restrict__ alive_rev,
                                       const int32_t* __restrict__ mask,
@@ -405,14 +375,14 @@ __global__ void gather_narrow4_kernel(const int32_t* __restrict__ adj,
          c < chunks; c += 2 * warps) {
         const int64_t s0 = (c << 7) + lane * 4;
         const int64_t s1 = s0 + (warps << 7);
-        const uint32_t f0 = s0 < total ? Lane<4>::load<kPayload>(alive_rev, s0) : 0u;
-        const uint32_t f1 = s1 < total ? Lane<4>::load<kPayload>(alive_rev, s1) : 0u;
-        narrow4_chunk<kPayload>(adj, mask, tv_table, tn, accept, sendok, s0, f0, total, w_log2);
-        narrow4_chunk<kPayload>(adj, mask, tv_table, tn, accept, sendok, s1, f1, total, w_log2);
+        const uint32_t f0 = s0 < total ? Lane<4>::load(alive_rev, s0) : 0u;
+        const uint32_t f1 = s1 < total ? Lane<4>::load(alive_rev, s1) : 0u;
+        narrow4_chunk(adj, mask, tv_table, tn, accept, sendok, s0, f0, total, w_log2);
+        narrow4_chunk(adj, mask, tv_table, tn, accept, sendok, s1, f1, total, w_log2);
     }
 }
 
-template <int V, bool kPayload>
+template <int V>
 __global__ void gather_wide_kernel(const int32_t* __restrict__ adj,
                                    const uint8_t* __restrict__ alive_rev,
                                    const int32_t* __restrict__ mask,
@@ -441,16 +411,14 @@ __global__ void gather_wide_kernel(const int32_t* __restrict__ adj,
             int32_t j = (sub * 32 + static_cast<int32_t>(lane)) * V;
             for (; j + span < w; j += 2 * span) {
                 const int64_t s0 = base + j, s1 = s0 + span;
-                const typename L::F f0 = L::template load<kPayload>(alive_rev, s0);
-                const typename L::F f1 = L::template load<kPayload>(alive_rev, s1);
-                L::store(accept, s0, L::template run<kPayload>(adj, s0, f0, tv_table, m, acc));
-                L::store(accept, s1, L::template run<kPayload>(adj, s1, f1, tv_table, m, acc));
+                const typename L::F f0 = L::load(alive_rev, s0);
+                const typename L::F f1 = L::load(alive_rev, s1);
+                L::store(accept, s0, L::run(adj, s0, f0, tv_table, m, acc));
+                L::store(accept, s1, L::run(adj, s1, f1, tv_table, m, acc));
             }
             if (j < w) {
                 const int64_t s0 = base + j;
-                L::store(accept, s0,
-                         L::template run<kPayload>(adj, s0, L::template load<kPayload>(alive_rev, s0),
-                                                   tv_table, m, acc));
+                L::store(accept, s0, L::run(adj, s0, L::load(alive_rev, s0), tv_table, m, acc));
             }
         }
         acc.tn = __reduce_or_sync(kFull, acc.tn);
@@ -476,7 +444,6 @@ __global__ void gather_wide_kernel(const int32_t* __restrict__ adj,
     }
 }
 
-template <bool kPayload>
 __global__ void gather_rowwise_kernel(const int32_t* __restrict__ adj,
                                       const uint8_t* __restrict__ alive_rev,
                                       const int32_t* __restrict__ mask,
@@ -495,7 +462,7 @@ __global__ void gather_rowwise_kernel(const int32_t* __restrict__ adj,
         for (int32_t j = lane; j < w; j += 32) {
             const int64_t s = base + j;
             uint32_t a = 0;
-            if (kPayload || alive_rev[s] != 0) a = slot<kPayload>(adj[s], tv_table, m, acc);
+            if (alive_rev[s] != 0) a = slot(adj[s], tv_table, m, acc);
             accept[s] = static_cast<uint8_t>(a);
         }
         acc.tn = __reduce_or_sync(kFull, acc.tn);
@@ -559,12 +526,10 @@ extern "C" int fpm_rev_alive_lookup(const void* rev, const void* words,
     return static_cast<int>(cudaGetLastError());
 }
 
-namespace {
-
-template <bool kPayload>
-int launch_gather(const void* adj, const void* alive_rev, const void* mask,
-                  const void* tv_table, void* tn, void* accept, void* sendok, int64_t n,
-                  int32_t w, void* stream) {
+extern "C" int fpm_gather_accept_or(const void* adj, const void* alive_rev,
+                                    const void* mask, const void* tv_table,
+                                    void* tn, void* accept, void* sendok,
+                                    int64_t n, int32_t w, void* stream) {
     if (n <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     auto* a = static_cast<const int32_t*>(adj);
@@ -577,44 +542,370 @@ int launch_gather(const void* adj, const void* alive_rev, const void* mask,
     const bool pow2 = (w & (w - 1)) == 0;
     int w_log2 = 0;
     while ((1 << w_log2) < w) ++w_log2;
-    // the payload variant reads no alive_rev plane
-    const bool vec4 = aligned(adj, 16) && (kPayload || aligned(alive_rev, 4)) && aligned(accept, 4);
-    const bool vec16 =
-        aligned(adj, 16) && (kPayload || aligned(alive_rev, 16)) && aligned(accept, 16);
+    const bool vec4 = aligned(adj, 16) && aligned(alive_rev, 4) && aligned(accept, 4);
+    const bool vec16 = aligned(adj, 16) && aligned(alive_rev, 16) && aligned(accept, 16);
     if (pow2 && w >= 4 && w <= 64 && vec4) {
-        gather_narrow4_kernel<kPayload><<<grid_for((n * w + 127) / 128, kThreads / 32),
-                                          kThreads, 0, st>>>(a, ar, m, t, o_tn, o_acc, o_cnt,
-                                                             n, w_log2);
+        gather_narrow4_kernel<<<grid_for((n * w + 127) / 128, kThreads / 32), kThreads, 0,
+                                st>>>(a, ar, m, t, o_tn, o_acc, o_cnt, n, w_log2);
     } else if (w % 512 == 0 && vec16) {
         // 16 slots per lane; a row takes about w / 1024 warps (1..8), so
         // that each lane has two steps in flight
         const int warps_per_row = w >= 8192 ? 8 : w >= 4096 ? 4 : w >= 2048 ? 2 : 1;
-        gather_wide_kernel<16, kPayload><<<grid_for(n, (kThreads / 32) / warps_per_row),
-                                           kThreads, 0, st>>>(a, ar, m, t, o_tn, o_acc, o_cnt,
-                                                              n, w, warps_per_row);
+        gather_wide_kernel<16><<<grid_for(n, (kThreads / 32) / warps_per_row), kThreads,
+                                 0, st>>>(a, ar, m, t, o_tn, o_acc, o_cnt, n, w,
+                                          warps_per_row);
     } else if (w % 128 == 0 && vec4) {
-        gather_wide_kernel<4, kPayload><<<grid_for(n, kThreads / 32), kThreads, 0, st>>>(
+        gather_wide_kernel<4><<<grid_for(n, kThreads / 32), kThreads, 0, st>>>(
             a, ar, m, t, o_tn, o_acc, o_cnt, n, w, 1);
     } else {
-        gather_rowwise_kernel<kPayload><<<grid_for(n, kThreads / 32), kThreads, 0, st>>>(
+        gather_rowwise_kernel<<<grid_for(n, kThreads / 32), kThreads, 0, st>>>(
             a, ar, m, t, o_tn, o_acc, o_cnt, n, w);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// The multi-device superstep's gather, on payload words.
+//
+// Replaces _gather_accept_kernel's arithmetic (fuzzypatternmatching_tpu/ops/
+// lcc_superstep.py) as the JAX mesh superstep applies it to payload words,
+// per bucket (fuzzypatternmatching_tpu/parallel/sharded.py:900-941). The
+// table is a shard's payload halo: one int32 word per reverse-edge slot the
+// chunk reads, alive << 31 | tv of the sender's row, and an appended zero
+// word that pad slots read. A slot sends where its word is alive with
+// nonzero low bits (w < 0 and w != INT_MIN); p is then the low 31 bits.
+//
+// At R-MAT s21 on 4 shards the table is 15.8 M words (63 MB), more than
+// the 50 MB L2, so gathering every slot's word costs a DRAM sector per
+// slot; yet after the init superstep under 1 % of the slots read a word
+// that sends. Two kernels per shard and superstep:
+//
+//   * pack_sends: one pass over the table writes its sends bits (2 MB at
+//     s21, which stay in L2) and their group summary (one bit per group of
+//     G = 2^group_log2 words, at most kMaxSummaryBytes), in pack_alive's
+//     layout. Bound by bytes: 4 bytes read per word, N/8 + summary written.
+//     A warp loads 32 words per step, coalesced, and one ballot is one
+//     sends word; lane k keeps the k-th of 32 ballots, so a warp stores 32
+//     words at once. As in pack_alive, a warp builds one summary word.
+//   * gather_payload: stages the summary in shared memory (TMA bulk copy),
+//     streams the index plane, and for each slot tests its word's group
+//     bit, then its sends bit (L2), and fetches the payload word only where
+//     that is set: elsewhere the slot's outputs are zero by definition.
+//     Bound by bytes: 4 bytes of index read and 1 of accept written per
+//     slot, 12 per row, and the words that send.
+//
+// One gather launch covers all of a shard's buckets: the bucket table
+// (width, rows; slot and row offsets follow from their order) rides in the
+// kernel's parameters, with a lane mapping per width chosen on the host
+// (map_bucket). A warp's task is R rows of one bucket: each row takes L
+// lanes, each lane V slots a step (V = 4, 8 or 16: 16-byte index loads,
+// 4-byte accept stores; V = 1 for widths not a multiple of 4), and the
+// row's lanes meet in a segmented shuffle reduction (OR for tn, add for
+// sendok). A row's lanes take its quads of 4 slots in turn, so each load
+// instruction reads L consecutive quads. The mapping keeps most lanes busy
+// at every width, the half-step widths 12, 24, 48, 96 and 192 included
+// (for example 12: 3 lanes a row, 10 rows a warp; 192: 4 lanes of 16
+// slots, 3 steps, 8 rows a warp). A lane's slots of a step go through the
+// gate in rounds, each round's loads in flight together, rather than one
+// slot's chain of dependent reads after another.
 
-extern "C" int fpm_gather_accept_or(const void* adj, const void* alive_rev,
-                                    const void* mask, const void* tv_table,
-                                    void* tn, void* accept, void* sendok,
-                                    int64_t n, int32_t w, void* stream) {
-    return launch_gather<false>(adj, alive_rev, mask, tv_table, tn, accept, sendok, n, w,
-                                stream);
+namespace {
+
+constexpr int kMaxBuckets = 32;
+constexpr int kGatherThreads = 512;
+
+struct BucketTable {
+    int32_t count;
+    int32_t width[kMaxBuckets];
+    int32_t vec[kMaxBuckets];    // slots a lane takes per step: 1, 4, 8 or 16
+    int32_t lanes[kMaxBuckets];  // lanes per row
+    int32_t per_task[kMaxBuckets];  // rows per warp task: 32 / lanes
+    int64_t slot_off[kMaxBuckets];
+    int64_t row_off[kMaxBuckets];
+    int64_t rows[kMaxBuckets];
+    int64_t task_end[kMaxBuckets];  // running sum of the buckets' tasks
+};
+
+__global__ void pack_sends_kernel(const int32_t* __restrict__ table, int64_t n,
+                                  uint32_t* __restrict__ words, int64_t n_words,
+                                  uint32_t* __restrict__ summary, int64_t summary_words,
+                                  int group_log2) {
+    const unsigned lane = threadIdx.x & 31u;
+    const int64_t n_warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+    const int64_t unit = int64_t(1) << group_log2;  // sends words per summary word
+    for (int64_t u = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+         u < summary_words; u += n_warps) {
+        uint32_t sbits = 0;
+        for (int64_t c = 0; c < unit; c += 32) {
+            const int64_t w0 = u * unit + c;  // the first of 32 sends words
+            if (w0 >= n_words) break;         // warp-uniform
+            int32_t v[32];
+#pragma unroll
+            for (int k = 0; k < 32; ++k) {
+                const int64_t f = ((w0 + k) << 5) + lane;
+                v[k] = f < n ? __ldcs(table + f) : 0;
+            }
+            uint32_t mine = 0;
+#pragma unroll
+            for (int k = 0; k < 32; ++k) {
+                const uint32_t b = __ballot_sync(kFull, v[k] < 0 && v[k] != INT32_MIN);
+                if (lane == static_cast<unsigned>(k)) mine = b;
+            }
+            if (w0 + lane < n_words) words[w0 + lane] = mine;
+            // word w0 + lane lies in group ((c + lane) * 32) >> group_log2 of the unit
+            if (mine != 0) sbits |= 1u << static_cast<int>(((c + lane) << 5) >> group_log2);
+        }
+        sbits = __reduce_or_sync(kFull, sbits);
+        if (lane == 0) summary[u] = sbits;
+    }
 }
 
-extern "C" int fpm_gather_accept_or_payload(const void* adj, const void* mask,
-                                            const void* payload, void* tn, void* accept,
-                                            void* sendok, int64_t n, int32_t w,
-                                            void* stream) {
-    return launch_gather<true>(adj, nullptr, mask, payload, tn, accept, sendok, n, w, stream);
+// A lane's part of a row step: quads (4 slots) q0 + k L of its row, k <
+// V / 4, below w / 4, so that each load instruction reads L consecutive
+// quads of the row (V = 1: the single slot q0). Its slots go through three
+// rounds whose loads are all in flight at once: the index words (16-byte
+// evict-first loads); the sends words of the slots whose group bit is set
+// in the shared-memory summary (L2); the payload words of the slots that
+// send. Accept goes out as 4-byte stores (a byte for V = 1).
+template <int V>
+__device__ __forceinline__ void sends_lane(const int32_t* __restrict__ revmap,
+                                           uint8_t* __restrict__ accept, int64_t base,
+                                           int32_t w, int32_t q0, int32_t L,
+                                           const uint32_t* s_sum,
+                                           const uint32_t* __restrict__ words,
+                                           const int32_t* __restrict__ table, int group_log2,
+                                           uint32_t m, RowAcc& acc) {
+    uint32_t a[V];
+    uint32_t valid = 0;
+    if constexpr (V == 1) {
+        a[0] = static_cast<uint32_t>(__ldcs(revmap + base + q0));
+        valid = 1u;
+    } else {
+#pragma unroll
+        for (int k = 0; k < V / 4; ++k) {
+            const int32_t q = q0 + k * L;
+            int4 v = make_int4(0, 0, 0, 0);
+            if (4 * q < w) {
+                v = __ldcs(reinterpret_cast<const int4*>(revmap + base) + q);
+                valid |= 0xfu << (4 * k);
+            }
+            a[4 * k] = v.x;
+            a[4 * k + 1] = v.y;
+            a[4 * k + 2] = v.z;
+            a[4 * k + 3] = v.w;
+        }
+    }
+    uint32_t pass = 0;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        const uint32_t g = a[k] >> group_log2;
+        pass |= ((s_sum[g >> 5] >> (g & 31u)) & 1u) << k;
+    }
+    pass &= valid;
+    uint32_t send = 0;
+    if (pass != 0) {
+        uint32_t bits[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) bits[k] = (pass >> k) & 1u ? __ldg(words + (a[k] >> 5)) : 0u;
+#pragma unroll
+        for (int k = 0; k < V; ++k) send |= ((bits[k] >> (a[k] & 31u)) & 1u) << k;
+    }
+    uint32_t out[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) out[k] = 0u;
+    if (send != 0) {
+        uint32_t p[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            p[k] = (send >> k) & 1u ? static_cast<uint32_t>(__ldg(table + a[k])) & 0x7fffffffu : 0u;
+        }
+        acc.count += __popc(send);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            if ((p[k] & m) != 0) {
+                acc.tn |= p[k];
+                out[k] = 1u;
+            }
+        }
+    }
+    if constexpr (V == 1) {
+        accept[base + q0] = static_cast<uint8_t>(out[0]);
+    } else {
+#pragma unroll
+        for (int k = 0; k < V / 4; ++k) {
+            const int32_t q = q0 + k * L;
+            if (4 * q < w) {
+                __stcs(reinterpret_cast<uint32_t*>(accept + base) + q,
+                       out[4 * k] | (out[4 * k + 1] << 8) | (out[4 * k + 2] << 16) |
+                           (out[4 * k + 3] << 24));
+            }
+        }
+    }
+}
+
+template <int V>
+__device__ __forceinline__ void sends_row(const int32_t* __restrict__ revmap,
+                                          uint8_t* __restrict__ accept, int64_t base,
+                                          int32_t w, int32_t l_in, int32_t L,
+                                          const uint32_t* s_sum,
+                                          const uint32_t* __restrict__ words,
+                                          const int32_t* __restrict__ table, int group_log2,
+                                          uint32_t m, RowAcc& acc) {
+    const int32_t per = V == 1 ? 1 : 4;  // slots per index step of q0
+    for (int32_t q0 = l_in; per * q0 < w; q0 += L * (V == 1 ? 1 : V / 4)) {
+        sends_lane<V>(revmap, accept, base, w, q0, L, s_sum, words, table, group_log2, m, acc);
+    }
+}
+
+__global__ void __launch_bounds__(kGatherThreads, 2)
+gather_payload_kernel(const int32_t* __restrict__ revmap, const int32_t* __restrict__ mask,
+                      const int32_t* __restrict__ table, const uint32_t* __restrict__ words,
+                      const uint32_t* __restrict__ summary, uint32_t summary_bytes,
+                      int group_log2, int32_t* __restrict__ tn,
+                      uint8_t* __restrict__ accept, int32_t* __restrict__ sendok,
+                      const __grid_constant__ BucketTable bt) {
+    extern __shared__ __align__(128) uint32_t s_sum[];
+    __shared__ __align__(8) uint64_t bar;
+    stage_to_shared(s_sum, summary, summary_bytes, &bar);
+
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+    const int64_t total = bt.task_end[bt.count - 1];
+    int b = 0;
+    // tasks ascend in a warp's loop, so its bucket index only grows
+    for (int64_t t = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+         t < total; t += warps) {
+        while (t >= bt.task_end[b]) ++b;
+        const int32_t w = bt.width[b], V = bt.vec[b], L = bt.lanes[b];
+        const int r_in = lane / L, l_in = lane - r_in * L;
+        const int64_t row = (t - (b ? bt.task_end[b - 1] : 0)) * bt.per_task[b] + r_in;
+        RowAcc acc;
+        const bool active = r_in < bt.per_task[b] && row < bt.rows[b];
+        if (active) {
+            const uint32_t m = static_cast<uint32_t>(mask[bt.row_off[b] + row]);
+            const int64_t base = bt.slot_off[b] + row * w;
+            if (V == 16) {
+                sends_row<16>(revmap, accept, base, w, l_in, L, s_sum, words, table, group_log2, m, acc);
+            } else if (V == 8) {
+                sends_row<8>(revmap, accept, base, w, l_in, L, s_sum, words, table, group_log2, m, acc);
+            } else if (V == 4) {
+                sends_row<4>(revmap, accept, base, w, l_in, L, s_sum, words, table, group_log2, m, acc);
+            } else {
+                sends_row<1>(revmap, accept, base, w, l_in, L, s_sum, words, table, group_log2, m, acc);
+            }
+        }
+        // segmented reduction over each row's L lanes: lane l ends with the
+        // row's lanes l..; the row's first lane with all of them
+        for (int off = 1; off < L; off <<= 1) {
+            const uint32_t o_tn = __shfl_down_sync(kFull, acc.tn, off);
+            const uint32_t o_count = __shfl_down_sync(kFull, acc.count, off);
+            if (l_in + off < L) {
+                acc.tn |= o_tn;
+                acc.count += o_count;
+            }
+        }
+        if (active && l_in == 0) store_row(tn + bt.row_off[b], sendok + bt.row_off[b], row, acc);
+    }
+}
+
+// The lane mapping of a bucket of width w: the (V, L) whose warp task
+// keeps most lanes busy (rows x slots over 32 lanes x V x steps), then the
+// largest V (more bytes in flight a lane), then the fewest steps. Where a
+// row takes several steps, each step covers at least 32 of its slots.
+void map_bucket(int32_t w, bool vec, int32_t* v_out, int32_t* l_out) {
+    if (!vec || w % 4 != 0) {
+        *v_out = 1;
+        *l_out = w < 32 ? w : 32;
+        return;
+    }
+    double best = -1.0;
+    int32_t best_v = 0, best_steps = 0;
+    for (int32_t v = 16; v >= 4; v /= 2) {
+        if (w % v != 0) continue;
+        const int32_t per_row = w / v;  // lane-steps a row needs
+        for (int32_t l = 1; l <= 32 && l <= per_row; ++l) {
+            const int32_t steps = (per_row + l - 1) / l;
+            if (steps > 1 && l * v < 32) continue;
+            const double eff = double(32 / l) * w / (32.0 * v * steps);
+            if (eff > best + 1e-9 || (eff > best - 1e-9 && v == best_v && steps < best_steps)) {
+                best = eff;
+                best_v = v;
+                best_steps = steps;
+                *v_out = v;
+                *l_out = l;
+            }
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" int fpm_pack_sends(const void* table, int64_t n, void* words, int64_t n_words,
+                              void* summary, int64_t summary_words, int32_t group_log2,
+                              void* stream) {
+    if (group_log2 < 5 || group_log2 > 30 || summary_words <= 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int blocks = grid_for(summary_words, kThreads / 32);
+    pack_sends_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(table), n, static_cast<uint32_t*>(words), n_words,
+        static_cast<uint32_t*>(summary), summary_words, group_log2);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// buckets: count (width, rows) pairs, in slot order; tn and sendok hold one
+// value per row of all buckets, accept one byte per slot
+extern "C" int fpm_gather_payload(const void* revmap, const void* mask, const void* table,
+                                  const void* words, const void* summary,
+                                  int64_t summary_words, int32_t group_log2, void* tn,
+                                  void* accept, void* sendok, const int64_t* buckets,
+                                  int32_t count, void* stream) {
+    const int64_t bytes = summary_words * 4;
+    if (count <= 0 || count > kMaxBuckets || bytes <= 0 || bytes > kMaxSummaryBytes ||
+        (bytes & 15) != 0 || !aligned(summary, 16) || group_log2 < 5 || group_log2 > 30) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    BucketTable bt{};
+    bt.count = count;
+    int64_t slot = 0, row = 0, tasks = 0;
+    const bool planes_vec = aligned(revmap, 16) && aligned(accept, 4);
+    for (int i = 0; i < count; ++i) {
+        const int64_t w = buckets[2 * i], rows = buckets[2 * i + 1];
+        if (w <= 0 || w > (int64_t(1) << 30) || rows < 0) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+        int32_t v = 1, l = 1;
+        map_bucket(static_cast<int32_t>(w), planes_vec && slot % 4 == 0, &v, &l);
+        bt.width[i] = static_cast<int32_t>(w);
+        bt.vec[i] = v;
+        bt.lanes[i] = l;
+        bt.per_task[i] = 32 / l;
+        bt.slot_off[i] = slot;
+        bt.row_off[i] = row;
+        bt.rows[i] = rows;
+        tasks += (rows + bt.per_task[i] - 1) / bt.per_task[i];
+        bt.task_end[i] = tasks;
+        slot += rows * w;
+        row += rows;
+    }
+    if (tasks == 0) return static_cast<int>(cudaGetLastError());
+    cudaError_t err = cudaFuncSetAttribute(
+        gather_payload_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSummaryBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gather_payload_kernel, kGatherThreads, static_cast<size_t>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) per_sm = 1;
+    const int64_t want = (tasks + kGatherThreads / 32 - 1) / (kGatherThreads / 32);
+    const int64_t cap = static_cast<int64_t>(sm_count()) * per_sm;
+    const int blocks = static_cast<int>(want < cap ? want : cap);
+    gather_payload_kernel<<<blocks, kGatherThreads, static_cast<size_t>(bytes),
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(revmap), static_cast<const int32_t*>(mask),
+        static_cast<const int32_t*>(table), static_cast<const uint32_t*>(words),
+        static_cast<const uint32_t*>(summary), static_cast<uint32_t>(bytes), group_log2,
+        static_cast<int32_t*>(tn), static_cast<uint8_t*>(accept), static_cast<int32_t*>(sendok),
+        bt);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -40,8 +40,13 @@ _SIGNATURES = {
         "fpm_gather_accept_or": [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P,
         ],
-        "fpm_gather_accept_or_payload": [
-            _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P,
+        "fpm_pack_sends": [
+            _P, ctypes.c_int64, _P, ctypes.c_int64, _P, ctypes.c_int64,
+            ctypes.c_int32, _P,
+        ],
+        "fpm_gather_payload": [
+            _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P, _P, _P, _P,
+            ctypes.c_int32, _P,
         ],
     },
     "nlcc_frontier": {

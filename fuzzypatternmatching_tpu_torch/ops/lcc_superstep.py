@@ -12,9 +12,12 @@ nvcc at first use (``ops/_build.py``):
     read through the summary;
   * ``gather_accept_or``: tv-table gather, accept test against the row's
     pattern-adjacency mask, row OR and per-row send count, for one ELL
-    bucket; with ``payload=True`` the variant of the multi-device plane,
-    whose table holds ``alive << 31 | tv`` per reverse-edge slot and which
-    takes no ``alive_rev``.
+    bucket;
+  * ``gather_accept_or_payload``: the multi-device superstep's counterpart,
+    on payload tables that hold ``alive << 31 | tv`` per reverse-edge slot:
+    ``sends_table`` (``pack_sends``) packs the words that send into an
+    ``AliveTable``, and one gather over all of a shard's ELL buckets reads
+    through it.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain torch twin (``*_reference``), a CUDA tensor to the kernel. On the
@@ -31,16 +34,20 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 launches = {
     "pack_alive": 0, "rev_alive_lookup": 0, "gather_accept_or": 0,
-    "gather_accept_or_payload": 0,
+    "pack_sends": 0, "gather_accept_or_payload": 0,
 }
 
 # The group summary must fit this many bytes of shared memory in the lookup
 # kernel (csrc/lcc_superstep.cu, kMaxSummaryBytes).
 SUMMARY_BUDGET_BYTES = 96 * 1024
+# Buckets one payload gather takes (csrc/lcc_superstep.cu, kMaxBuckets).
+MAX_BUCKETS = 32
+INT32_MIN = -(1 << 31)  # bit 31 alone: an alive payload word with no candidates
 
 
 def reset_launches() -> None:
@@ -116,21 +123,27 @@ def alive_table(
         raise ValueError(f"alive_table: budget must lie in 16..{SUMMARY_BUDGET_BYTES}")
     if _on_cpu("alive_table", alive):
         return alive_table_reference(alive, budget)
+    return _pack_table("pack_alive", alive, budget)
+
+
+def _pack_table(kernel: str, x: torch.Tensor, budget: int) -> AliveTable:
+    """Launch ``kernel`` (``pack_alive`` or ``pack_sends``) over the n
+    entries of ``x``: the packed words and the group summary of its flags."""
     from . import _build
 
-    _check_cuda("alive_table", alive)
-    n = alive.shape[0]
+    _check_cuda(kernel, x)
+    n = x.shape[0]
     g = summary_group_log2(n, budget)
     n_words = -(-n // 32)
-    words = torch.empty(n_words, dtype=torch.int32, device=alive.device)
-    summary = torch.empty(_summary_words(n, g), dtype=torch.int32, device=alive.device)
+    words = torch.empty(n_words, dtype=torch.int32, device=x.device)
+    summary = torch.empty(_summary_words(n, g), dtype=torch.int32, device=x.device)
     lib = _build.library("lcc_superstep")
-    status = lib.fpm_pack_alive(
-        alive.data_ptr(), n, words.data_ptr(), n_words, summary.data_ptr(),
-        summary.shape[0], g, torch.cuda.current_stream(alive.device).cuda_stream,
+    status = getattr(lib, f"fpm_{kernel}")(
+        x.data_ptr(), n, words.data_ptr(), n_words, summary.data_ptr(),
+        summary.shape[0], g, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(status, "pack_alive")
-    launches["pack_alive"] += 1
+    _build.check(status, kernel)
+    launches[kernel] += 1
     return AliveTable(words, summary, g)
 
 
@@ -218,13 +231,82 @@ def gather_accept_or_reference(
     return tn, accept, send_ok.sum(dim=1, dtype=torch.int32)
 
 
-def gather_accept_or_payload_reference(
-    adj: torch.Tensor, adj_mask_rows: torch.Tensor, payload: torch.Tensor
+def gather_accept_or(
+    adj: torch.Tensor,
+    alive_rev: torch.Tensor,
+    adj_mask_rows: torch.Tensor,
+    tv_table: torch.Tensor,
 ):
-    """Plain twin of :func:`gather_accept_or` with ``payload=True`` (the
-    multi-device superstep's formula, fuzzypatternmatching_tpu/parallel/
-    sharded.py:900-941). Bit 31 of an int32 word is its sign bit: the alive
-    test ``p_raw >= 0x80000000`` of the uint32 words is ``p_raw < 0``."""
+    """Fused tv-gather + accept + row OR for one ELL bucket.
+
+    adj [n, w] int32 (pad slots index tv_table's zero entry); alive_rev
+    [n, w] bool; adj_mask_rows [n] int32 accept mask per row; tv_table
+    [V + 1] int32 with ``tv_table[V] == 0``. Returns (tn [n] int32,
+    accept [n, w] bool, sendok [n] int32)."""
+    if (
+        adj.dtype != torch.int32
+        or alive_rev.dtype != torch.bool
+        or adj_mask_rows.dtype != torch.int32
+        or tv_table.dtype != torch.int32
+    ):
+        raise ValueError(
+            "gather_accept_or: expects int32 adj, bool alive_rev, int32 "
+            "adj_mask_rows and int32 tv_table"
+        )
+    n, w = adj.shape
+    if alive_rev.shape != adj.shape or adj_mask_rows.shape != (n,):
+        raise ValueError("gather_accept_or: shapes of adj, alive_rev, mask differ")
+    if _on_cpu("gather_accept_or", adj):
+        return gather_accept_or_reference(adj, alive_rev, adj_mask_rows, tv_table)
+    from . import _build
+
+    _check_cuda("gather_accept_or", adj, alive_rev, adj_mask_rows, tv_table)
+    dev = adj.device
+    tn = torch.empty(n, dtype=torch.int32, device=dev)
+    accept = torch.empty((n, w), dtype=torch.bool, device=dev)
+    sendok = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return tn, accept, sendok
+    lib = _build.library("lcc_superstep")
+    status = lib.fpm_gather_accept_or(
+        adj.data_ptr(), alive_rev.data_ptr(), adj_mask_rows.data_ptr(),
+        tv_table.data_ptr(), tn.data_ptr(), accept.data_ptr(),
+        sendok.data_ptr(), n, w, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "gather_accept_or")
+    launches["gather_accept_or"] += 1
+    return tn, accept, sendok
+
+
+# -- the multi-device superstep's gather, on payload words -------------------
+
+
+def sends_table_reference(
+    payload: torch.Tensor, budget: int = SUMMARY_BUDGET_BYTES
+) -> AliveTable:
+    """Plain twin of :func:`sends_table`."""
+    return alive_table_reference((payload < 0) & (payload != INT32_MIN), budget)
+
+
+def sends_table(payload: torch.Tensor, budget: int = SUMMARY_BUDGET_BYTES) -> AliveTable:
+    """The sends table of a payload table, int32 words ``alive << 31 | tv``:
+    the :class:`AliveTable` of the flags "word i sends" (bit 31 set and
+    nonzero low bits: ``w < 0 and w != INT_MIN``), in one pass over the
+    words. It gates the gather of :func:`gather_accept_or_payload`."""
+    if payload.dtype != torch.int32 or payload.dim() != 1:
+        raise ValueError("sends_table: payload must be a 1-D int32 tensor")
+    if not 16 <= budget <= SUMMARY_BUDGET_BYTES:
+        raise ValueError(f"sends_table: budget must lie in 16..{SUMMARY_BUDGET_BYTES}")
+    if _on_cpu("sends_table", payload):
+        return sends_table_reference(payload, budget)
+    return _pack_table("pack_sends", payload, budget)
+
+
+def _payload_bucket_reference(adj, adj_mask_rows, payload):
+    """One bucket [n, w] of the JAX mesh superstep's formula
+    (fuzzypatternmatching_tpu/parallel/sharded.py:900-941). Bit 31 of an
+    int32 word is its sign bit: the alive test ``p_raw >= 0x80000000`` of
+    the uint32 words is ``p_raw < 0``."""
     p_raw = payload[adj]
     p = p_raw & 0x7FFFFFFF
     send_ok = (p != 0) & (p_raw < 0)
@@ -234,69 +316,113 @@ def gather_accept_or_payload_reference(
     return tn, accept, send_ok.sum(dim=1, dtype=torch.int32)
 
 
-def gather_accept_or(
-    adj: torch.Tensor,
-    alive_rev: torch.Tensor | None,
-    adj_mask_rows: torch.Tensor,
-    tv_table: torch.Tensor,
-    *,
-    payload: bool = False,
+def _bucket_totals(what, revmap, masks, buckets):
+    """Check the bucket table against the planes."""
+    if not 1 <= len(buckets) <= MAX_BUCKETS:
+        raise ValueError(f"{what}: 1..{MAX_BUCKETS} buckets, got {len(buckets)}")
+    if any(w < 1 or nb < 0 for w, nb in buckets):
+        raise ValueError(f"{what}: bucket widths must be positive and rows not negative")
+    slots = sum(w * nb for w, nb in buckets)
+    rows = sum(nb for _, nb in buckets)
+    if revmap.shape != (slots,) or masks.shape != (rows,):
+        raise ValueError(
+            f"{what}: revmap [{slots}] and masks [{rows}] expected for the buckets, "
+            f"got {tuple(revmap.shape)} and {tuple(masks.shape)}"
+        )
+    return slots, rows
+
+
+def gather_accept_or_payload_reference(
+    revmap: torch.Tensor, masks: torch.Tensor, payload: torch.Tensor, buckets
 ):
-    """Fused tv-gather + accept + row OR for one ELL bucket.
+    """Plain twin of :func:`gather_accept_or_payload`: the per-bucket
+    formula, bucket by bucket, the results concatenated."""
+    tns, accepts, counts = [], [], []
+    slot = row = 0
+    for w, nb in buckets:
+        tn, accept, sendok = _payload_bucket_reference(
+            revmap[slot : slot + nb * w].view(nb, w), masks[row : row + nb], payload
+        )
+        tns.append(tn)
+        accepts.append(accept.reshape(-1))
+        counts.append(sendok)
+        slot += nb * w
+        row += nb
+    return torch.cat(tns), torch.cat(accepts), torch.cat(counts)
 
-    adj [n, w] int32 (pad slots index tv_table's zero entry); alive_rev
-    [n, w] bool; adj_mask_rows [n] int32 accept mask per row; tv_table
-    [V + 1] int32 with ``tv_table[V] == 0``. Returns (tn [n] int32,
-    accept [n, w] bool, sendok [n] int32).
 
-    ``payload=True``: ``alive_rev`` is None and ``tv_table`` is the payload
-    table, int32 words ``alive << 31 | tv``; a slot sends where its word
-    has bit 31 and nonzero low bits, with p the low bits (pad slots index
-    a zero word)."""
-    if payload != (alive_rev is None):
-        raise ValueError("gather_accept_or: alive_rev is None exactly when payload=True")
+def _check_sends(payload: torch.Tensor, sends) -> None:
+    """``sends`` must be an :class:`AliveTable` of ``payload``'s length:
+    the kernel indexes its words and its summary by payload index."""
+    if not isinstance(sends, AliveTable):
+        raise ValueError("gather_accept_or_payload: sends must be the payload's sends_table")
+    n = payload.numel()
+    g = sends.group_log2
     if (
-        adj.dtype != torch.int32
-        or (alive_rev is not None and alive_rev.dtype != torch.bool)
-        or adj_mask_rows.dtype != torch.int32
-        or tv_table.dtype != torch.int32
+        sends.words.dtype != torch.int32
+        or sends.summary.dtype != torch.int32
+        or sends.words.shape != (-(-n // 32),)
+        or not 5 <= g <= 30
+        or sends.summary.shape != (_summary_words(n, g),)
+        or 4 * sends.summary.numel() > SUMMARY_BUDGET_BYTES
     ):
         raise ValueError(
-            "gather_accept_or: expects int32 adj, bool alive_rev, int32 "
-            "adj_mask_rows and int32 tv_table"
+            f"gather_accept_or_payload: sends (words {tuple(sends.words.shape)}, summary "
+            f"{tuple(sends.summary.shape)}, G 2^{g}) is not a sends_table of {n} words"
         )
-    n, w = adj.shape
-    if (alive_rev is not None and alive_rev.shape != adj.shape) or adj_mask_rows.shape != (n,):
-        raise ValueError("gather_accept_or: shapes of adj, alive_rev, mask differ")
-    if _on_cpu("gather_accept_or", adj):
-        if payload:
-            return gather_accept_or_payload_reference(adj, adj_mask_rows, tv_table)
-        return gather_accept_or_reference(adj, alive_rev, adj_mask_rows, tv_table)
+
+
+def gather_accept_or_payload(
+    revmap: torch.Tensor,
+    masks: torch.Tensor,
+    payload: torch.Tensor,
+    buckets,
+    sends: AliveTable | None = None,
+):
+    """Payload gather + accept + row OR over all ELL buckets of a shard: the
+    multi-device superstep's counterpart of :func:`gather_accept_or`. On the
+    card it is two launches, :func:`sends_table` over ``payload`` and one
+    gather over every bucket through it.
+
+    ``buckets``: (width, rows) per bucket, in slot order. ``revmap`` int32
+    [S], the buckets' [rows, width] planes one after the other (S = the sum
+    of rows x width): each slot's index into ``payload``, int32 words
+    ``alive << 31 | tv`` (pad slots index a zero word); ``masks`` int32
+    [rows of all buckets]: the accept mask of each row. ``sends``, where
+    given, is ``sends_table(payload)`` already made, and the pack is not
+    run again. A slot sends where its word has bit 31 and nonzero low bits,
+    with p the low bits. Returns (tn [rows] int32, accept [S] bool, sendok
+    [rows] int32)."""
+    if revmap.dtype != torch.int32 or masks.dtype != torch.int32 or payload.dtype != torch.int32:
+        raise ValueError("gather_accept_or_payload: expects int32 revmap, masks and payload")
+    if payload.dim() != 1:
+        raise ValueError("gather_accept_or_payload: payload must be 1-D")
+    if sends is not None:
+        _check_sends(payload, sends)
+    slots, rows = _bucket_totals("gather_accept_or_payload", revmap, masks, buckets)
+    if _on_cpu("gather_accept_or_payload", revmap):
+        return gather_accept_or_payload_reference(revmap, masks, payload, buckets)
     from . import _build
 
-    planes = [adj, adj_mask_rows, tv_table] + ([] if payload else [alive_rev])
-    _check_cuda("gather_accept_or", *planes)
-    dev = adj.device
-    tn = torch.empty(n, dtype=torch.int32, device=dev)
-    accept = torch.empty((n, w), dtype=torch.bool, device=dev)
-    sendok = torch.empty(n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return tn, accept, sendok
-    lib = _build.library("lcc_superstep")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if payload:
-        status = lib.fpm_gather_accept_or_payload(
-            adj.data_ptr(), adj_mask_rows.data_ptr(), tv_table.data_ptr(),
-            tn.data_ptr(), accept.data_ptr(), sendok.data_ptr(), n, w, stream,
-        )
-        _build.check(status, "gather_accept_or_payload")
-        launches["gather_accept_or_payload"] += 1
-        return tn, accept, sendok
-    status = lib.fpm_gather_accept_or(
-        adj.data_ptr(), alive_rev.data_ptr(), adj_mask_rows.data_ptr(),
-        tv_table.data_ptr(), tn.data_ptr(), accept.data_ptr(),
-        sendok.data_ptr(), n, w, stream,
+    if sends is None:
+        sends = sends_table(payload)
+    _check_cuda(
+        "gather_accept_or_payload", revmap, masks, payload, sends.words, sends.summary
     )
-    _build.check(status, "gather_accept_or")
-    launches["gather_accept_or"] += 1
+    dev = revmap.device
+    tn = torch.empty(rows, dtype=torch.int32, device=dev)
+    accept = torch.empty(slots, dtype=torch.bool, device=dev)
+    sendok = torch.empty(rows, dtype=torch.int32, device=dev)
+    if rows == 0:
+        return tn, accept, sendok
+    table = np.ascontiguousarray(buckets, dtype=np.int64)
+    lib = _build.library("lcc_superstep")
+    status = lib.fpm_gather_payload(
+        revmap.data_ptr(), masks.data_ptr(), payload.data_ptr(), sends.words.data_ptr(),
+        sends.summary.data_ptr(), sends.summary.shape[0], sends.group_log2,
+        tn.data_ptr(), accept.data_ptr(), sendok.data_ptr(), table.ctypes.data,
+        len(buckets), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "gather_accept_or_payload")
+    launches["gather_accept_or_payload"] += 1
     return tn, accept, sendok

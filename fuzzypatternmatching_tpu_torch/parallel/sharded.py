@@ -34,14 +34,14 @@ process. The host reads of the whole state (``tv_host``, ``alive_pairs``,
 ``state_to_global``, the lazy states, ``with_updates``) serve the
 single-controller host loop of ``MatchEngine`` and refuse such a mesh;
 ``local_blocks`` reads each process's own shards.
-Its default, non-init branch runs the payload variant of the
-``gather_accept_or`` kernel per shard and bucket; the init superstep, the
-counting and the metadata branches are plain torch, as in the bucketed
-engine. Left out, as TPU workarounds: the cummax segment forms, the
-scan-chunking of long calls, the packed transfer mirrors and the host
-reconstruction of the post-init state (``alive_pairs`` is a device nonzero
-and a sort), the power-of-two rounding of the halo sizes, and the
-communication statistics.
+Its default, non-init branch calls ``gather_accept_or_payload`` once per
+shard over all of its buckets (two kernels: the pack of the payload halo's
+sends bits, and the gather through them); the init superstep, the counting
+and the metadata branches are plain torch, as in the bucketed engine. Left
+out, as TPU workarounds: the cummax segment forms, the scan-chunking of
+long calls, the packed transfer mirrors and the host reconstruction of the
+post-init state (``alive_pairs`` is a device nonzero and a sort), the
+power-of-two rounding of the halo sizes, and the communication statistics.
 
 Pad slots are inert: their reverse-edge index reads the appended zero
 payload word, and their label code is 0. Every scatter of the exchanges
@@ -62,7 +62,7 @@ from ..engine.lcc_bucketed import (
     or_over_bits,
     segment_or,
 )
-from ..ops.lcc_superstep import gather_accept_or, row_or
+from ..ops.lcc_superstep import gather_accept_or_payload, row_or
 from ..pattern.pattern_graph import PatternGraph
 from .mesh import Mesh
 
@@ -220,6 +220,7 @@ class ShardedLccEngine:
             row_off += nb
         self.S = S = off
         self.n_ellrows = row_off
+        self.bucket_dims = [(w, nb) for _, w, _, nb, _ in self.ell_buckets]
         if n * S >= np.iinfo(np.int32).max:
             raise ValueError(f"{n * S} slots do not fit int32 slot ids")
 
@@ -470,6 +471,11 @@ class ShardedLccEngine:
         last = len(self.ell_buckets) - 1
         if not meta:
             m_ell = or_over_bits(rt_ell, self.adj_all)
+        if not (init or meta or self.counting):
+            # every bucket at once: flat per-row and per-slot outputs
+            tn_all, acc_all, sor_all = gather_accept_or_payload(
+                sh.revmap, m_ell, plH, self.bucket_dims
+            )
         tn_parts, accany_parts = [], []
         tn_i_parts = [[] for _ in range(self.k)]
         cnt_parts = [[] for _ in self._pairs]
@@ -515,9 +521,8 @@ class ShardedLccEngine:
                     tn = row_or(pa)
                     acc_i = [(pa & self.adj_all[i]) != 0 for i in range(self.k)]
                 else:
-                    tn, accept, sor = gather_accept_or(
-                        sh.revmap[sl].view(nb, w), None, m_b, plH, payload=True
-                    )
+                    tn, sor = tn_all[roff : roff + nb], sor_all[roff : roff + nb]
+                    accept = acc_all[sl].view(nb, w)
                 tn_parts.append(self._wide_or(sh, tn) if wide else tn)
             if self.counting:
                 cls_b = sh.cls[sl].view(nb, w)

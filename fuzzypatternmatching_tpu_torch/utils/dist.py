@@ -27,11 +27,20 @@ The port of ``fuzzypatternmatching_tpu/utils/dist.py``:
 from __future__ import annotations
 
 import os
+import sys
 
 import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import Mesh
+
+
+def print_line(text: str) -> None:
+    """Write ``text`` and its newline to stdout in one ``write``. Processes
+    that share one pipe (the launcher's) then never split each other's
+    lines; ``print`` with unbuffered stdout writes each piece apart."""
+    sys.stdout.write(text + "\n")
+    sys.stdout.flush()
 
 
 def add_distributed_args(ap) -> None:

@@ -1,8 +1,9 @@
-"""The torch package and chip_smoke.py import no JAX and nothing of the JAX
-package (``fuzzypatternmatching_tpu``) or of ``tools/``, directly or
-through another module. Checked twice: in a fresh interpreter, because this
-test process has JAX loaded already (tests/conftest.py), and by scanning
-every import statement of the sources."""
+"""The torch package, chip_smoke.py and ab_mesh_gather.py import no JAX
+and nothing of the JAX package (``fuzzypatternmatching_tpu``) or of
+``tools/``, directly or through another module. Checked twice: in a
+fresh interpreter, because this test process has JAX loaded already
+(tests/conftest.py), and by scanning every import statement of the
+sources."""
 
 import ast
 import glob
@@ -19,7 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO, "fuzzypatternmatching_tpu_torch")
 SOURCES = sorted(
     glob.glob(os.path.join(PORT_DIR, "**", "*.py"), recursive=True)
-) + [os.path.join(REPO, "chip_smoke.py")]
+) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "ab_mesh_gather.py")]
 FORBIDDEN = ("jax", "fuzzypatternmatching_tpu", "tools", "make_golden")
 
 
@@ -86,11 +87,11 @@ def test_every_port_module_is_listed():
 
 
 def test_importing_the_port_leaves_jax_out():
-    """Every port module and chip_smoke's imports, in a fresh interpreter:
+    """Every port module and the chip scripts' imports, in a fresh interpreter:
     neither jax nor the JAX package ends up in sys.modules."""
     code = (
         "import importlib, sys\n"
-        f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke', 'ab_mesh_gather']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', "
         "'fuzzypatternmatching_tpu') or k.startswith(('jax.', "
@@ -126,5 +127,5 @@ def test_source_imports_nothing_of_jax_or_tools(path):
 
 def test_the_scan_sees_every_port_module():
     scanned = {os.path.relpath(p, REPO) for p in SOURCES}
-    assert "chip_smoke.py" in scanned
-    assert len(scanned) > len(_port_modules())  # modules plus chip_smoke.py
+    assert {"chip_smoke.py", "ab_mesh_gather.py"} <= scanned
+    assert len(scanned) > len(_port_modules())  # modules plus the chip scripts

@@ -249,9 +249,12 @@ def test_launcher_runs_the_demo_across_two_processes():
 def test_launcher_gives_each_process_its_local_rank():
     """The launcher's processes all run on this host: LOCAL_RANK is the
     process id and LOCAL_WORLD_SIZE the process count, which
-    ``utils/dist.placement`` reads to pick cards and the backend."""
-    code = ("import os, sys; print('local', sys.argv[-1], os.environ['LOCAL_RANK'], "
-            "os.environ['LOCAL_WORLD_SIZE'], flush=True)")
+    ``utils/dist.placement`` reads to pick cards and the backend. Each
+    process writes its line in one ``write``: the processes share the
+    pipe, and ``print`` with several arguments writes each piece apart
+    when stdout is unbuffered."""
+    code = ("import os, sys; os.write(1, f\"local {sys.argv[-1]} {os.environ['LOCAL_RANK']} "
+            "{os.environ['LOCAL_WORLD_SIZE']}\\n\".encode())")
     rc, out, err = launch(3, [sys.executable, "-c", code])
     assert rc == 0, out + err
     assert sorted(line for line in out.splitlines() if line.startswith("local")) == [

@@ -244,13 +244,15 @@ def test_twins_count_no_launches_on_cpu():
         torch.from_numpy(adj), torch.from_numpy(alive_rev),
         torch.from_numpy(mask), torch.from_numpy(tv),
     )
-    ops.gather_accept_or(
-        torch.from_numpy(adj), None, torch.from_numpy(mask), torch.from_numpy(tv),
-        payload=True,
-    )
+    payload = torch.from_numpy(tv)
+    for sends in (None, ops.sends_table(payload)):
+        ops.gather_accept_or_payload(
+            torch.from_numpy(adj.reshape(-1)), torch.from_numpy(mask), payload, [(8, 4)],
+            sends=sends,
+        )
     assert ops.launches == {
         "pack_alive": 0, "rev_alive_lookup": 0, "gather_accept_or": 0,
-        "gather_accept_or_payload": 0,
+        "pack_sends": 0, "gather_accept_or_payload": 0,
     }
 
 
@@ -354,20 +356,36 @@ def test_gather_accept_or_every_lane_mapping_on_cuda(cuda_device, n, w, offset):
         assert torch.equal(g.cpu(), r)
 
 
-# -- the payload variant of gather_accept_or (the mesh LCC superstep) ---------
+# -- the multi-device superstep's gather on payload words ---------------------
+# (gather_accept_or_payload takes all of a shard's buckets in one call; on the
+# card it packs the sends bits with sends_table, then gathers through them)
 
-# the mesh engine's ELL widths (parallel/sharded.py WIDTHS): every lane mapping
-PAYLOAD_WIDTHS = [8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024]
+# the mesh engine's ELL widths (parallel/sharded.py WIDTHS), and width 1
+PAYLOAD_WIDTHS = [1, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024]
+SENDS_DENSITIES = [0.0, 0.005, 0.6, 1.0]
+# (words, summary budget): one word; lengths that are not multiples of 32 or
+# of G (5,000 words on a 16-byte summary: G = 64)
+SENDS_SIZES = [(1, ops.SUMMARY_BUDGET_BYTES), (33, ops.SUMMARY_BUDGET_BYTES),
+               (1000, ops.SUMMARY_BUDGET_BYTES), (5000, 16), (70001, 64)]
+BUCKET_ROWS = [0, 1, 33, 1000]
 
 
-def _payload_inputs(rng, n, w, S=700, density=0.6):
-    """Payload words alive << 31 | tv (uint32 [S + 1], the last a zero pad
-    word), gather indices with pad sentinels S, and row masks."""
+def _payload_words(rng, S, density, int_min_share=0.1):
+    """Payload words alive << 31 | tv (uint32 [S + 1], the last the
+    appended zero word): a share of tv is 0, so alive words include
+    INT_MIN (bit 31 alone), which does not send."""
     tv = rng.randint(0, 1 << 16, size=S + 1).astype(np.uint32)
-    tv[rng.rand(S + 1) < 0.3] = 0
+    tv[rng.rand(S + 1) < int_min_share] = 0
     alive = rng.rand(S + 1) < density
     payload = tv | (alive.astype(np.uint32) << np.uint32(31))
     payload[S] = 0
+    return payload
+
+
+def _payload_inputs(rng, n, w, S=700, density=0.6):
+    """Payload words with a zero pad word, gather indices [n, w] with pad
+    sentinels S, and row masks."""
+    payload = _payload_words(rng, S, density, int_min_share=0.3)
     adj = rng.randint(0, S + 1, size=(n, w)).astype(np.int32)
     adj[:, -1] = S  # pad sentinel reads the appended zero word
     mask = rng.randint(0, 1 << 16, size=n).astype(np.int32)
@@ -375,21 +393,17 @@ def _payload_inputs(rng, n, w, S=700, density=0.6):
 
 
 def _payload_args(payload, adj, mask):
-    return (torch.from_numpy(adj), torch.from_numpy(mask),
+    return (torch.from_numpy(adj.reshape(-1)), torch.from_numpy(mask),
             torch.from_numpy(payload.view(np.int32)))
 
 
-@pytest.mark.parametrize("density", DENSITIES)
-@pytest.mark.parametrize("n, w", [(n, w) for w in (8, 12, 24, 96, 1024) for n in (0, 1, 33)])
-def test_payload_twin_matches_the_jax_superstep_formula(n, w, density):
-    """The twin against the per-bucket arithmetic of the JAX mesh superstep
+def _jax_bucket(payload, adj, mask):
+    """The per-bucket arithmetic of the JAX mesh superstep
     (fuzzypatternmatching_tpu/parallel/sharded.py:900-941), in jnp on
-    uint32 words, and the wrapper on the CPU against the twin."""
+    uint32 words: (tn, accept, sendok) as numpy."""
     import jax
     import jax.numpy as jnp
 
-    rng = np.random.RandomState(n * 5 + w)
-    payload, adj, mask = _payload_inputs(rng, n, w, density=density)
     u32 = jnp.uint32
     p_raw = jnp.asarray(payload)[jnp.asarray(adj)]
     p_b = p_raw & u32(0x7FFFFFFF)
@@ -399,13 +413,85 @@ def test_payload_twin_matches_the_jax_superstep_formula(n, w, density):
     tn = jax.lax.reduce(jnp.where(accept, p_b, u32(0)), np.uint32(0),
                         jax.lax.bitwise_or, dimensions=[1])
     sor = jnp.sum(send_ok, axis=1, dtype=jnp.int32)
-    args = _payload_args(payload, adj, mask)
-    got = ops.gather_accept_or_payload_reference(*args)
-    want = (np.asarray(tn).astype(np.int32), np.asarray(accept), np.asarray(sor))
-    for g, x in zip(got, want):
+    return np.asarray(tn).astype(np.int32), np.asarray(accept), np.asarray(sor)
+
+
+def _bucket_case(k, S=60000, mask_kind="random"):
+    """A shard's bucket table over every width in PAYLOAD_WIDTHS, whose
+    row counts rotate through BUCKET_ROWS with ``k``; its planes, payload
+    (alive density SENDS_DENSITIES[k]) and per-bucket inputs."""
+    rng = np.random.RandomState(100 + k)
+    payload = _payload_words(rng, S, SENDS_DENSITIES[k % len(SENDS_DENSITIES)])
+    buckets, parts = [], []
+    for i, w in enumerate(PAYLOAD_WIDTHS):
+        nb = BUCKET_ROWS[(i + k) % len(BUCKET_ROWS)]
+        adj = rng.randint(0, S + 1, size=(nb, w)).astype(np.int32)
+        adj[:, -1] = S
+        mask = {"random": rng.randint(0, 1 << 16, size=nb),
+                "zero": np.zeros(nb), "one": np.full(nb, 0xFFFF)}[mask_kind]
+        buckets.append((w, nb))
+        parts.append((adj, mask.astype(np.int32)))
+    revmap = np.concatenate([a.reshape(-1) for a, _ in parts]).astype(np.int32)
+    masks = np.concatenate([m for _, m in parts]).astype(np.int32)
+    return payload, buckets, parts, revmap, masks
+
+
+@pytest.mark.parametrize("density", SENDS_DENSITIES)
+@pytest.mark.parametrize("n, budget", SENDS_SIZES)
+def test_sends_table_twin_matches_the_jax_sends_predicate(n, budget, density):
+    """The pack twin against the sends predicate of the JAX mesh superstep
+    (fuzzypatternmatching_tpu/parallel/sharded.py:900-905) in jnp, packed
+    by numpy: bits and group summary; INT_MIN words and the appended zero
+    word send nothing."""
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(n + budget)
+    payload = _payload_words(rng, n - 1, density) if n > 1 else np.zeros(1, np.uint32)
+    p_raw = jnp.asarray(payload)
+    sends = np.asarray(((p_raw & jnp.uint32(0x7FFFFFFF)) != 0) & (p_raw >= jnp.uint32(0x80000000)))
+    t = ops.sends_table(torch.from_numpy(payload.view(np.int32)), budget)
+    assert t.group_log2 == ops.summary_group_log2(n, budget)
+    assert np.array_equal(_as_u32(t.words), _words_numpy(sends, -(-n // 32)))
+    assert np.array_equal(_as_u32(t.summary),
+                          _summary_numpy(sends, t.group_log2, t.summary.shape[0]))
+    if n > 1 and density == 1.0:
+        assert (payload == 0x80000000).any() and 0 < sends.sum() < n - 1
+
+
+@pytest.mark.parametrize("mask_kind", ["random", "zero", "one"])
+@pytest.mark.parametrize("k", range(len(BUCKET_ROWS)))
+def test_payload_buckets_twin_matches_the_jax_formula_per_bucket(k, mask_kind):
+    """The grouped twin (and the wrapper on the CPU) over a bucket table of
+    every width, each with 0, 1, 33 or 1000 rows, against the JAX formula
+    bucket by bucket."""
+    payload, buckets, parts, revmap, masks = _bucket_case(k, mask_kind=mask_kind)
+    table = torch.from_numpy(payload.view(np.int32))
+    args = (torch.from_numpy(revmap), torch.from_numpy(masks), table)
+    got = ops.gather_accept_or_payload_reference(*args, buckets)
+    want = [_jax_bucket(payload, adj, mask) for adj, mask in parts]
+    assert np.array_equal(got[0].numpy(), np.concatenate([x[0] for x in want]))
+    assert np.array_equal(got[1].numpy(), np.concatenate([x[1].reshape(-1) for x in want]))
+    assert np.array_equal(got[2].numpy(), np.concatenate([x[2] for x in want]))
+    for sends in (None, ops.sends_table(table)):
+        on_cpu = ops.gather_accept_or_payload(*args, buckets, sends=sends)
+        for g, x in zip(on_cpu, got):
+            assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("n, w", [(n, w) for w in (8, 12, 24, 96, 1024) for n in (0, 1, 33)])
+def test_payload_twin_matches_the_jax_superstep_formula(n, w, density):
+    """The twin on one bucket against the per-bucket arithmetic of the JAX
+    mesh superstep (fuzzypatternmatching_tpu/parallel/sharded.py:900-941),
+    in jnp on uint32 words, and the wrapper on the CPU against the twin."""
+    rng = np.random.RandomState(n * 5 + w)
+    payload, adj, mask = _payload_inputs(rng, n, w, density=density)
+    revmap, mask_t, table = _payload_args(payload, adj, mask)
+    got = ops.gather_accept_or_payload_reference(revmap, mask_t, table, [(w, n)])
+    tn, accept, sor = _jax_bucket(payload, adj, mask)
+    for g, x in zip(got, (tn, accept.reshape(-1), sor)):
         assert np.array_equal(g.numpy(), x)
-    adj_t, mask_t, table = args
-    for g, x in zip(ops.gather_accept_or(adj_t, None, mask_t, table, payload=True), got):
+    for g, x in zip(ops.gather_accept_or_payload(revmap, mask_t, table, [(w, n)]), got):
         assert torch.equal(g, x)
     if n and density == 1.0:
         assert int(got[2].sum()) > 0  # the alive bit really gates
@@ -413,36 +499,83 @@ def test_payload_twin_matches_the_jax_superstep_formula(n, w, density):
 
 def test_payload_wrapper_checks_its_arguments():
     payload, adj, mask = _payload_inputs(np.random.RandomState(0), 4, 8)
-    adj_t, mask_t, table = _payload_args(payload, adj, mask)
-    with pytest.raises(ValueError):  # payload=True takes no alive_rev
-        ops.gather_accept_or(adj_t, torch.ones((4, 8), dtype=torch.bool), mask_t, table,
-                             payload=True)
-    with pytest.raises(ValueError):  # and the default needs one
-        ops.gather_accept_or(adj_t, None, mask_t, table)
+    revmap, mask_t, table = _payload_args(payload, adj, mask)
+    sends = ops.sends_table(table)
+    with pytest.raises(ValueError):  # the buckets must cover the planes
+        ops.gather_accept_or_payload(revmap, mask_t, table, [(8, 3)])
+    with pytest.raises(ValueError):  # at least one bucket
+        ops.gather_accept_or_payload(revmap[:0], mask_t[:0], table, [])
+    with pytest.raises(ValueError):  # no more than the kernel's table holds
+        ops.gather_accept_or_payload(
+            revmap[:0], mask_t[:0], table, [(8, 0)] * (ops.MAX_BUCKETS + 1)
+        )
+    with pytest.raises(ValueError):
+        ops.gather_accept_or_payload(revmap, mask_t, table.to(torch.int64), [(8, 4)])
+    with pytest.raises(ValueError):
+        ops.sends_table(table.to(torch.int64))
+    # a sends table that is not this payload's: the kernel would index its
+    # words and summary out of bounds, so the wrapper refuses it
+    other = ops.sends_table(table[:-40])
+    mismatched = [
+        sends.words,  # not an AliveTable
+        other,  # of a shorter payload: fewer words
+        sends._replace(words=sends.words[:-1]),
+        sends._replace(summary=torch.zeros(8, dtype=torch.int32)),
+        sends._replace(group_log2=4),
+        sends._replace(words=sends.words.to(torch.int64)),
+    ]
+    for bad in mismatched:
+        with pytest.raises(ValueError):
+            ops.gather_accept_or_payload(revmap, mask_t, table, [(8, 4)], sends=bad)
+    ops.gather_accept_or_payload(revmap, mask_t, table, [(8, 4)], sends=sends)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("density", DENSITIES)
-@pytest.mark.parametrize("offset", [0, 4])
-@pytest.mark.parametrize("w", PAYLOAD_WIDTHS)
-@pytest.mark.parametrize("n", [0, 1, 33, 1000])
-def test_payload_kernel_matches_twin_on_cuda(cuda_device, n, w, offset, density):
-    """The payload kernel at the mesh engine's widths (every lane mapping)
-    against its twin; an index plane 4 bytes into a larger buffer is not
-    16-byte aligned."""
-    rng = np.random.RandomState(n * 13 + w + offset)
-    payload, adj, mask = _payload_inputs(rng, n, w, S=60000, density=density)
-    adj_t, mask_t, table = _payload_args(payload, adj, mask)
-    buf = torch.zeros(n * w + offset // 4, dtype=torch.int32, device=cuda_device)
-    buf[offset // 4 :] = adj_t.view(-1).to(cuda_device)
+@pytest.mark.parametrize("density", SENDS_DENSITIES)
+@pytest.mark.parametrize("n, budget", SENDS_SIZES + [((1 << 22) + 5, ops.SUMMARY_BUDGET_BYTES)])
+def test_sends_table_kernel_matches_twin_on_cuda(cuda_device, n, budget, density):
+    rng = np.random.RandomState(n + budget)
+    payload = _payload_words(rng, n - 1, density) if n > 1 else np.zeros(1, np.uint32)
+    table = torch.from_numpy(payload.view(np.int32))
     ops.reset_launches()
-    got = ops.gather_accept_or(
-        buf[offset // 4 :].view(n, w), None, mask_t.to(cuda_device),
-        table.to(cuda_device), payload=True,
+    got = ops.sends_table(table.to(cuda_device), budget)
+    torch.cuda.synchronize()
+    assert ops.launches["pack_sends"] == 1
+    want = ops.sends_table_reference(table, budget)
+    assert got.group_log2 == want.group_log2
+    assert torch.equal(got.words.cpu(), want.words)
+    assert torch.equal(got.summary.cpu(), want.summary)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("mask_kind", ["random", "zero", "one"])
+@pytest.mark.parametrize("k", range(len(BUCKET_ROWS)))
+def test_payload_kernel_matches_twin_on_cuda(cuda_device, k, mask_kind, offset):
+    """The grouped gather over a bucket table of every width (every lane
+    mapping; width 1 and odd row counts put later buckets off a 4-slot
+    boundary) against its twin; an index plane 4 bytes into a larger
+    buffer is not 16-byte aligned."""
+    payload, buckets, _, revmap, masks = _bucket_case(k, mask_kind=mask_kind)
+    args = (torch.from_numpy(revmap), torch.from_numpy(masks),
+            torch.from_numpy(payload.view(np.int32)))
+    buf = torch.zeros(revmap.size + offset // 4, dtype=torch.int32, device=cuda_device)
+    buf[offset // 4 :] = args[0].to(cuda_device)
+    table = args[2].to(cuda_device)
+    want = ops.gather_accept_or_payload_reference(*args, buckets)
+    ops.reset_launches()
+    got = ops.gather_accept_or_payload(buf[offset // 4 :], args[1].to(cuda_device), table, buckets)
+    torch.cuda.synchronize()
+    assert ops.launches["pack_sends"] == 1 and ops.launches["gather_accept_or_payload"] == 1
+    for g, r in zip(got, want):
+        assert torch.equal(g.cpu(), r)
+    sends = ops.sends_table(table)
+    got = ops.gather_accept_or_payload(
+        buf[offset // 4 :], args[1].to(cuda_device), table, buckets, sends=sends
     )
     torch.cuda.synchronize()
-    assert ops.launches["gather_accept_or_payload"] == (1 if n else 0)
-    for g, r in zip(got, ops.gather_accept_or_payload_reference(adj_t, mask_t, table)):
+    assert ops.launches["pack_sends"] == 2 and ops.launches["gather_accept_or_payload"] == 2
+    for g, r in zip(got, want):
         assert torch.equal(g.cpu(), r)
 
 

@@ -217,3 +217,33 @@ def test_default_device_needs_a_card(s10):
         build_mesh()
     with pytest.raises(RuntimeError):
         Mesh(["cuda"])
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("n", [1, 3])
+def test_superstep_gathers_each_shard_in_one_call(s10, n, mode, monkeypatch):
+    """The default branch of a non-init superstep makes one payload-gather
+    call per shard, over all of the shard's buckets (the same rows as the
+    per-bucket formula: test_supersteps_equal_jax_sharded); the init
+    superstep, counting and metadata make no such call."""
+    from fuzzypatternmatching_tpu_torch.parallel import sharded
+
+    gj, labels, pj, _ = s10
+    eng = ShardedLccEngine(
+        port_graph(gj), labels, port_pattern(pj), mesh=cpu_mesh(n), **_kw(s10, mode)
+    )
+    calls = {"gather_accept_or_payload": 0}
+    real = sharded.gather_accept_or_payload
+
+    def call(*args):
+        calls["gather_accept_or_payload"] += 1
+        assert len(args) == 4, "the engine leaves the pack to the wrapper"
+        assert args[3] == eng.bucket_dims and len(args[3]) == len(eng.ell_buckets)
+        assert args[0].shape == (eng.S,) and args[1].shape == (eng.n_ellrows,)
+        return real(*args)
+
+    monkeypatch.setattr(sharded, "gather_accept_or_payload", call)
+    st, rows, _ = eng.lcc_call(eng.init_state(), True, n_steps=3)
+    assert len(rows) == 3
+    plain = mode in ("default", "ranks4")
+    assert calls == {k: 2 * n if plain else 0 for k in calls}
