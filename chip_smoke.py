@@ -127,7 +127,18 @@ NVIDIA GPU:
      bytes each process sent across the process boundary;
  25. the same with 2 cards visible, where the machine has them: the same
      rule then gives one process per card over NCCL, 2 shards each; on one
-     card a line says it did not run and why.
+     card a line says it did not run and why;
+ 26. the measurement scripts (bench_torch.py, tools_torch/): bench_torch's
+     measurement on the s21 graph of phase 5 (its anchors on every run, the
+     launches of the bucketed engine's kernels in the search),
+     profile_search's phase split and init_decompose's split of the init
+     superstep on the same engine (device ms by part, the bytes bound, the
+     post-init alive_pairs); the sweep at s13 over the bucketed and
+     sharded engines in the default, counting, meta and full-plane modes
+     against its pinned anchors, the mesh kernels launched in the
+     full-plane cell; scaling_bench and comm_volume at s17 on 1, 2 and 4
+     shards of the card; and python3 bench_torch.py as a process at
+     BENCH_SCALE=13, through the graph cache the sweep wrote.
 
 Any failure ends the run with a non-zero exit code, and so does a run
 without a CUDA device or without the rest of the repository. The last two
@@ -156,6 +167,7 @@ import time
 import numpy as np
 import torch
 
+import bench_torch
 from fuzzypatternmatching_tpu_torch import native
 from fuzzypatternmatching_tpu_torch.algorithms import frontier
 from fuzzypatternmatching_tpu_torch.cli import (
@@ -188,6 +200,9 @@ from fuzzypatternmatching_tpu_torch.utils.dist import (
     init_distributed,
     print_line,
 )
+from tools_torch import comm_volume, init_decompose, scaling_bench, sweep
+from tools_torch.common import HBM_BYTES_PER_MS, superstep_bytes
+from tools_torch.profile_search import phase_split
 
 S21_ANCHORS = {
     "active_vertices": 147,
@@ -236,7 +251,6 @@ KERNEL_SOURCES = {
     + ("nlcc_frontier.cu" if k in WALK_KERNELS else "lcc_superstep.cu")
     for k in KERNELS
 }
-HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s
 DENSITIES = (0.005, 0.6, 1.0)
 # the bucketed engine's kernels (phases 5-7)
 BUCKET_KERNELS = ("pack_alive", "rev_alive_lookup", "gather_accept_or")
@@ -1186,30 +1200,6 @@ def run_s21_modes(g, labels, pattern, constraints, dev, rows_full):
     return {"counting": counting, "metadata": meta, "flat": flat}
 
 
-def superstep_bytes(lcc):
-    """Bytes one non-init superstep must move: each input it reads once
-    (the state, the engine's planes and tables), each output written once
-    (tv, alive, the cleared tp_flag)."""
-    v = lcc.num_vertices
-    if hasattr(lcc, "buckets"):  # bucketed
-        n_flags = lcc.num_slots + 1
-        planes = [lcc._rev_flat]
-        for d in lcc._dev:
-            planes += [d.adj, d.seg_id, d.seg_rows]
-            planes += [x for x in (d.meta, d.cls) if x is not None]
-            if lcc.num_ranks > 1:
-                planes += [d.own_rows, d.own_seg]
-    else:
-        n_flags = lcc.num_edges + 1
-        planes = [lcc.col, lcc.erow, lcc.rev]
-        planes += [x for x in (lcc.col_class, lcc.meta_code) if x is not None]
-        if lcc.num_ranks > 1:
-            planes += [lcc.owner, lcc.eowner]
-    tables = list(lcc.meta_allow or [])
-    read = 4 * v + 2 * n_flags + sum(t.numel() * t.element_size() for t in planes + tables)
-    return read + 4 * v + 2 * n_flags
-
-
 def time_mode_supersteps(engines):
     """Phase 17: one non-init superstep over the full s21 graph at the
     state after the init superstep, per branch, timed by CUDA-graph replay
@@ -2107,6 +2097,86 @@ def run_mesh_processes(g, labels, ref, cards, backend, tag):
         f"{[round(res['build_s'], 2) for res in results]} s)")
 
 
+TOOL_SHARDS = (1, 2, 4)  # phase 26's mesh sizes, shards of the one card
+TOOL_SCALE = 17  # phase 26's scaling and communication-volume graph
+BENCH_CHILD_TIMEOUT = 300  # seconds the bench_torch.py process may take
+
+
+def run_tools(g, labels, dev):
+    """Phase 26: the port's measurement scripts on the card. bench_torch's
+    measurement on the s21 graph of phase 5 (its anchors on every run, the
+    kernels' launches), profile_search's phase split and init_decompose's
+    split of the init superstep on the same engine; the sweep at s13 over
+    both engines and four modes against its pinned anchors (the mesh pair
+    launched in the full-plane cells); scaling_bench and comm_volume at
+    s17 on 1, 2 and 4 shards of the card; and bench_torch.py as its own
+    process at BENCH_SCALE=13, through its graph cache."""
+    t0 = time.perf_counter()
+    engine = bench_torch.build_engine(g, labels, dev)
+    build_s = time.perf_counter() - t0
+    rec = bench_torch.measure(engine, 21)
+    log(f"[26] bench_torch.measure, s21 tree (engine build {build_s:.3f} s): best "
+        f"{rec['best_seconds']:.4f} s of {[round(x, 4) for x in rec['seconds_all']]}, warm-up "
+        f"{rec['warmup_seconds']:.4f} s, {rec['value'] / 1e6:.2f} M traversed edges/s; anchors "
+        f"OK {rec['anchors']}; kernel launches in the search {rec['launches']}; host loadavg "
+        f"{rec['host_loadavg']}; {rec['card']}")
+    for k in BUCKET_KERNELS:
+        if rec["launches"][k] == 0:
+            raise AssertionError(f"[26] {k}: no launch in bench_torch's s21 search")
+    (split,) = phase_split(engine, runs=1)
+    log(f"[26] profile_search phase split, s21 tree: {split['total']:.4f} s = LP "
+        f"{split['lp']:.4f} + TP {split['tp']:.4f} + other {split['other']:.4f} s; TP and "
+        f"step-0 rows (itr, phase, step, s) {[(i, p, st, round(x, 4)) for i, p, st, x in split['rows']]}")
+    dec = init_decompose.decompose(engine.lcc, reps=3)
+    parts = {k: round(v, 4) for k, v in dec["parts_ms"].items()}
+    log(f"[26] init_decompose, s21 init superstep, device ms by part {parts}, total "
+        f"{dec['profiled_total_ms']:.4f} ms (profiled window {dec['profiled_wall_ms']:.3f} ms "
+        f"on the host clock); alone {dec['superstep_best_ms']:.4f} ms of "
+        f"{[round(x, 4) for x in dec['superstep_ms']]} against its bytes bound "
+        f"{dec['bound_ms']:.4f} ms ({dec['bound_bytes']} B); post-init alive_pairs "
+        f"({dec['alive_pairs']} pairs) {dec['alive_pairs_best_ms']:.4f} ms of "
+        f"{[round(x, 4) for x in dec['alive_pairs_ms']]}")
+    del engine
+    torch.cuda.empty_cache()
+
+    matrix, failed = sweep.run_sweep([13], ["bucketed", "sharded"], sweep.MODES, 2, dev)
+    if failed:
+        raise AssertionError(f"[26] sweep cells failed or diverged: "
+                             f"{ {k: matrix[k]['error'] for k in failed} }")
+    for name, cell in matrix.items():
+        log(f"[26] sweep {name}: best {cell['seconds_best']:.4f} s of "
+            f"{[round(x, 4) for x in cell['seconds_all']]}, warm-up {cell['warmup_seconds']:.4f} "
+            f"s, {cell['edges_per_sec'] / 1e6:.3f} M edges/s, launches {cell['launches']}")
+    need = {"s13/bucketed/default": BUCKET_KERNELS, "s13/sharded/full_plane": MESH_KERNELS}
+    for name, kernels in need.items():
+        if min(matrix[name]["launches"][k] for k in kernels) == 0:
+            raise AssertionError(f"[26] {name}: launches {matrix[name]['launches']}")
+    log(f"[26] sweep: every s13 cell equals {sweep.PINNED_ANCHORS[(13, 'tree')]}")
+
+    g17, labels17 = scaling_bench.rmat_graph(TOOL_SCALE)
+    rows = scaling_bench.scaling(g17, labels17, TOOL_SHARDS, 3, dev, shards=True)
+    log(f"[26] scaling_bench s{TOOL_SCALE}, shards of the card: "
+        f"{[(r['n'], round(r['ms_per_superstep'], 3)) for r in rows]} (n, ms a superstep)")
+    vol = comm_volume.volumes([TOOL_SCALE], TOOL_SHARDS, dev, True)
+    log(f"[26] comm_volume s{TOOL_SCALE} (n, cut share, cross B, wire B a shard and "
+        f"superstep): {[(r['n'], round(r['cut_fraction'], 4), r['cross_bytes_max_per_device_per_superstep'], r['wire_bytes_per_device_per_superstep']) for r in vol]}")
+    if [r["n"] for r in rows] != list(TOOL_SHARDS) or [r["n"] for r in vol] != list(TOOL_SHARDS):
+        raise AssertionError("[26] a mesh size was skipped")
+
+    env = dict(os.environ, BENCH_SCALE="13")
+    env.pop("BENCH_FRESH", None)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py")], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=BENCH_CHILD_TIMEOUT)
+    if p.returncode != 0:
+        raise AssertionError(f"[26] bench_torch.py exited with {p.returncode}:\n{p.stderr}")
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    if line["anchors"] != bench_torch.ANCHORS[13] or "cached graph" not in p.stderr:
+        raise AssertionError(f"[26] bench_torch.py at s13: {line}\n{p.stderr}")
+    log(f"[26] python3 bench_torch.py at BENCH_SCALE=13 (the sweep's cached graph) in "
+        f"{time.perf_counter() - t0:.1f} s: {line}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2217,6 +2287,10 @@ def main() -> int:
             f"device here, and NCCL takes one process per card ({MESH_PROCESSES} cards "
             f"needed; it refuses two processes on one card)")
     log(f"[24-25] the mesh across processes took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    run_tools(g, labels, dev)
+    log(f"[26] the measurement scripts took {time.perf_counter() - t0:.1f} s")
 
     bad = sorted(
         k for k in sys.modules

@@ -23,6 +23,11 @@ metadata, never on the single-device ``DeviceNlcc``.
 
 ``superstep_timing=True`` runs one LCC call per superstep and records each
 one's own seconds (the reference's per-step brackets, beta.cpp:592-596).
+
+The positional parameters are the JAX ``MatchEngine``'s, in its order;
+``device`` is keyword-only. ``lcc_pallas`` is taken and ignored: in the JAX
+package it chose the Pallas superstep, whose results equal the XLA one's,
+and the port has only its kernels.
 """
 
 from __future__ import annotations
@@ -68,10 +73,11 @@ class MatchEngine:
         source_batch: int = 1 << 16,
         nlcc_mode: str = "auto",
         nlcc_device_min: int = NLCC_DEVICE_MIN,
+        superstep_timing: bool = False,
         counting: bool = False,
+        lcc_pallas: bool = False,
         edge_data: np.ndarray | None = None,
         compact: bool = True,
-        superstep_timing: bool = False,
         *,
         device: torch.device | str = "cuda",
     ):

@@ -40,8 +40,22 @@ sends bits, and the gather through them); the init superstep, the counting
 and the metadata branches are plain torch, as in the bucketed engine. Left
 out, as TPU workarounds: the cummax segment forms, the scan-chunking of
 long calls, the packed transfer mirrors and the host reconstruction of the
-post-init state (``alive_pairs`` is a device nonzero and a sort), the
-power-of-two rounding of the halo sizes, and the communication statistics.
+post-init state (``alive_pairs`` is a device nonzero and a sort), and the
+power-of-two rounding of the halo sizes.
+
+``comm_stats`` is the JAX engine's accounting of the three exchanges (the
+reference's mailbox counters), from the request lists built at
+construction: per shard, the useful entries of the tv halo, the payload
+halo (``alive_halo``) and the partial-OR exchange (``directions: 2``:
+partials in, new tv back), split into ``useful_intra`` (to itself) and
+``useful_cross``; ``wire_entries_per_device``, the exchange's padded size
+per shard; ``entry_bytes``; and per shard ``cut_edges`` (slots whose
+reverse edge another shard holds) and ``local_rev_edges``. The useful
+counts and the edge counts equal the JAX engine's. The wire sizes are
+``n * halo_h``, ``n * halo_hrev`` and ``n * halo_k``, exact where the JAX
+engine rounds to powers of two, so never larger; the alive halo's entry
+is the 4-byte payload word (1 byte in JAX, whose alive halo carries the
+flag alone). ``Mesh.cross_bytes`` counts what actually crosses processes.
 
 Pad slots are inert: their reverse-edge index reads the appended zero
 payload word, and their label code is 0. Every scatter of the exchanges
@@ -348,6 +362,40 @@ class ShardedLccEngine:
                 if cnt:
                     sendrows[r, o, :cnt] = np.arange(lo_v, lo_v + cnt) - rowstart[r]
                     ridx[o, r, :cnt] = np.arange(lo_v, lo_v + cnt) - o * b
+
+        # --- communication volumes (the reference's mailbox send/recv
+        # counters): per shard, the useful entries each exchange moves from
+        # the request lists, split intra-/cross-shard, and the wire sizes --
+        def split_counts(count):
+            cnt = np.array([[count(r, o) for o in range(n)] for r in range(n)], dtype=np.int64)
+            intra = np.diagonal(cnt).copy()
+            return cnt.sum(axis=1) - intra, intra
+
+        owners = [rv_meta[r][1] for r in range(n)]
+        tv_cross, tv_intra = split_counts(lambda r, o: len(req_tv[r][o]))
+        al_cross, al_intra = split_counts(
+            lambda r, o: len(req_al[r][o]) if n > 1 else len(owners[r])
+        )
+        or_cross, or_intra = split_counts(lambda r, o: spans[r][o][1])
+        self.comm_stats = {
+            "tv_halo": {
+                "useful_cross": tv_cross, "useful_intra": tv_intra,
+                "wire_entries_per_device": int(n * H), "entry_bytes": 4,
+            },
+            "alive_halo": {  # the payload word: alive << 31 | row tv
+                "useful_cross": al_cross, "useful_intra": al_intra,
+                "wire_entries_per_device": int(n * Hrev), "entry_bytes": 4,
+            },
+            "partial_or": {  # two directions: partials in, new tv back
+                "useful_cross": or_cross, "useful_intra": or_intra,
+                "wire_entries_per_device": int(n * K), "entry_bytes": 4,
+                "directions": 2,
+            },
+            "cut_edges": np.array([np.sum(owners[r] != r) for r in range(n)], dtype=np.int64),
+            "local_rev_edges": np.array(
+                [np.sum(owners[r] == r) for r in range(n)], dtype=np.int64
+            ),
+        }
 
         # --- init superstep: tv == label tv, so a slot's candidates are a
         # function of its neighbour's label code; no halo at init ----------

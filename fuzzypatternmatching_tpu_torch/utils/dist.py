@@ -123,12 +123,13 @@ def init_distributed(args, device: torch.device | str = "cuda") -> str | None:
 
 
 def build_mesh(
-    num_devices: int | None = None, shards: int | None = None,
-    device: torch.device | str = "cuda", two_d: bool = False,
+    num_devices: int | None = None, two_d: bool = False, *,
+    shards: int | None = None, device: torch.device | str = "cuda",
 ) -> Mesh:
     """The graph-partition mesh. By default one shard per visible CUDA
     device (the first ``num_devices`` of them); with ``shards``, that many
-    shards on the one ``device``. ``device="cpu"`` puts every shard on the
+    shards on the one ``device``. The positional parameters are the JAX
+    ``build_mesh``'s; ``shards`` and ``device`` are keyword-only. ``device="cpu"`` puts every shard on the
     CPU (``shards``, ``num_devices``, ``FPM_VIRTUAL_CPU_DEVICES`` or one).
     Once ``init_distributed`` has joined a group of several processes, the
     shards built here are this process's part of a mesh across all of

@@ -1,6 +1,7 @@
-"""The torch package, chip_smoke.py and ab_mesh_gather.py import no JAX
-and nothing of the JAX package (``fuzzypatternmatching_tpu``) or of
-``tools/``, directly or through another module. Checked twice: in a
+"""The torch package, chip_smoke.py, ab_mesh_gather.py, bench_torch.py and
+the scripts of tools_torch/ import no JAX and nothing of the JAX package
+(``fuzzypatternmatching_tpu``), of ``tools/`` or of the JAX ``bench.py``,
+directly or through another module. Checked twice: in a
 fresh interpreter, because this test process has JAX loaded already
 (tests/conftest.py), and by scanning every import statement of the
 sources."""
@@ -18,10 +19,14 @@ import fuzzypatternmatching_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO, "fuzzypatternmatching_tpu_torch")
+TOOLS = sorted(glob.glob(os.path.join(REPO, "tools_torch", "*.py")))
+SCRIPTS = ["chip_smoke", "ab_mesh_gather", "bench_torch"] + [
+    "tools_torch." + os.path.basename(p)[:-3] for p in TOOLS
+]
 SOURCES = sorted(
     glob.glob(os.path.join(PORT_DIR, "**", "*.py"), recursive=True)
-) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "ab_mesh_gather.py")]
-FORBIDDEN = ("jax", "fuzzypatternmatching_tpu", "tools", "make_golden")
+) + [os.path.join(REPO, f"{s}.py") for s in SCRIPTS[:3]] + TOOLS
+FORBIDDEN = ("jax", "fuzzypatternmatching_tpu", "tools", "make_golden", "bench")
 
 
 def _port_modules():
@@ -87,17 +92,17 @@ def test_every_port_module_is_listed():
 
 
 def test_importing_the_port_leaves_jax_out():
-    """Every port module and the chip scripts' imports, in a fresh interpreter:
+    """Every port module and every script, in a fresh interpreter:
     neither jax nor the JAX package ends up in sys.modules."""
     code = (
         "import importlib, sys\n"
-        f"for m in {_port_modules()!r} + ['chip_smoke', 'ab_mesh_gather']:\n"
+        f"for m in {_port_modules() + SCRIPTS!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', "
         "'fuzzypatternmatching_tpu') or k.startswith(('jax.', "
         "'fuzzypatternmatching_tpu.')))\n"
         "assert not bad, bad\n"
-        "assert 'chip_smoke' in sys.modules\n"
+        "assert 'chip_smoke' in sys.modules and 'bench' not in sys.modules\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -127,5 +132,8 @@ def test_source_imports_nothing_of_jax_or_tools(path):
 
 def test_the_scan_sees_every_port_module():
     scanned = {os.path.relpath(p, REPO) for p in SOURCES}
-    assert {"chip_smoke.py", "ab_mesh_gather.py"} <= scanned
+    assert {"chip_smoke.py", "ab_mesh_gather.py", "bench_torch.py",
+            "tools_torch/sweep.py", "tools_torch/profile_search.py",
+            "tools_torch/init_decompose.py", "tools_torch/scaling_bench.py",
+            "tools_torch/comm_volume.py", "tools_torch/common.py"} <= scanned
     assert len(scanned) > len(_port_modules())  # modules plus the chip scripts
