@@ -41,6 +41,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine  # noqa: E402
+from fuzzypatternmatching_tpu_torch.ops import lcc_fused  # noqa: E402
 from fuzzypatternmatching_tpu_torch.ops import lcc_superstep as ops  # noqa: E402
 from fuzzypatternmatching_tpu_torch.pattern.builtin import load_tree_pattern  # noqa: E402
 from fuzzypatternmatching_tpu_torch.pattern.nonlocal_constraint import (  # noqa: E402
@@ -152,10 +153,11 @@ def measure(engine: MatchEngine, scale: int, runs: int = 3) -> dict:
     the anchors; the record that ``main`` prints."""
     dev = engine.device
     ops.reset_launches()
+    lcc_fused.reset_launches()
     t0 = clock(dev)
     r = engine.run()
     warmup = clock(dev) - t0
-    launches = dict(ops.launches)
+    launches = {**ops.launches, **lcc_fused.launches}
     anchors = ANCHORS.get(scale)
     check_anchors(anchors, r, f"s{scale} warm-up")
     log(f"  warm-up: {warmup:.3f}s, iterations={r.iterations}, {summary(r)}, "

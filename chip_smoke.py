@@ -15,8 +15,13 @@ NVIDIA GPU:
   5. run the benchmark search — R-MAT s21 (4-rank scrambled stream), degree
      labels, the tree corpus, compact continuation — once warm and three
      times timed; assert the anchors 147/262/74 and 13,207,467 traversed
-     edges on each run, and that every kernel was launched by the search;
-  6. the same search with compact=False (every superstep over all slots);
+     edges on each run, and that every kernel of the default mode was
+     launched by the search: pack_alive, rev_alive_lookup and the fused
+     supersteps (init_superstep at least once, continuation_superstep at
+     least 7 times, at most 2 launches of each a superstep), and
+     gather_accept_or (the counting mode's, phase 14) not at all;
+  6. the same search with compact=False (every superstep over all slots),
+     on phase 5's engine with its compact continuation turned off;
   7. hold each kernel against its twin at the s21 shapes of a full-graph
      superstep, on the state after the init superstep and on an all-alive
      state, and time kernel and twin with CUDA events; time the lookup
@@ -138,7 +143,19 @@ NVIDIA GPU:
      against its pinned anchors, the mesh kernels launched in the
      full-plane cell; scaling_bench and comm_volume at s17 on 1, 2 and 4
      shards of the card; and python3 bench_torch.py as a process at
-     BENCH_SCALE=13, through the graph cache the sweep wrote.
+     BENCH_SCALE=13, through the graph cache the sweep wrote;
+ 27. the fused default-mode supersteps (ops/lcc_fused.py, K1
+     init_superstep and K2 continuation_superstep) against their twins,
+     exactly: right after phase 3 on seeded cases (every engine width
+     8..8192 with a split widest bucket, widths 1-4 and slot bases off 8,
+     split hubs in a width-16 bucket, 1, 4 and 2,000 output ranks, uint8
+     and int32 label codes, templates of 1 to 16 vertices, empty buckets
+     and none); after phase 7 on every superstep of one s21 tree search
+     with the compact path and one with compact=False (phases 5-6's
+     engines, anchors asserted), and both kernels timed at the post-init
+     state of the full graph by CUDA-graph replay in turns with their
+     twins (the plain per-bucket superstep), eagerly, and beside their
+     bytes bounds.
 
 Any failure ends the run with a non-zero exit code, and so does a run
 without a CUDA device or without the rest of the repository. The last two
@@ -147,7 +164,9 @@ main-path search: the s21 tree search for the superstep kernels, the s21
 cycle device search for the walk kernels; largest difference from the
 twin, times and the least time the card could take; the mesh superstep's
 kernels' launches are those of the phase 22 full-plane search) and the
-result line ``{"ok": true, ...}``.
+result line ``{"ok": true, ...}``. gather_accept_or's launches there are
+those of the phase 14 counting search, its path since the default mode
+fused its superstep.
 
 Usage: python3 chip_smoke.py   (from the repository root; one CUDA card)
 (``chip_smoke.py --mesh-child DIR ...`` is phase 24-25's per-process
@@ -177,7 +196,7 @@ from fuzzypatternmatching_tpu_torch.cli import (
     run_pattern_matching,
     transfer_graph,
 )
-from fuzzypatternmatching_tpu_torch.engine import nlcc
+from fuzzypatternmatching_tpu_torch.engine import lcc_bucketed, nlcc
 from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
 from fuzzypatternmatching_tpu_torch.engine.result import MatchResult
 from fuzzypatternmatching_tpu_torch.generators.rmat import rmat_all_ranks
@@ -185,6 +204,7 @@ from fuzzypatternmatching_tpu_torch.golden import GOLDEN_BASE, REPO, build_confi
 from fuzzypatternmatching_tpu_torch.graph import storage
 from fuzzypatternmatching_tpu_torch.graph.csr import Graph, degree_labels, from_edges
 from fuzzypatternmatching_tpu_torch.ops import _build
+from fuzzypatternmatching_tpu_torch.ops import lcc_fused as lf
 from fuzzypatternmatching_tpu_torch.ops import lcc_superstep as ops
 from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
 from fuzzypatternmatching_tpu_torch.parallel import sharded as sharded_lcc
@@ -244,16 +264,23 @@ KERNELS = {
     "pack_sends": "fuzzypatternmatching_tpu/parallel/sharded.py:903",
     "expand_frontier": "fuzzypatternmatching_tpu/engine/nlcc_device.py:105",
     "forward_winners": "fuzzypatternmatching_tpu/engine/nlcc_device.py:188",
+    # the supersteps XLA fused (not Pallas kernels): _superstep with
+    # init=True (from _call_init1_seg :782) and init=False (in _call_impl's
+    # scan :813)
+    "init_superstep": "fuzzypatternmatching_tpu/engine/lcc_bucketed.py:529",
+    "continuation_superstep": "fuzzypatternmatching_tpu/engine/lcc_bucketed.py:529",
 }
 WALK_KERNELS = ("expand_frontier", "forward_winners")
+FUSED_KERNELS = ("init_superstep", "continuation_superstep")
 KERNEL_SOURCES = {
     k: "fuzzypatternmatching_tpu_torch/csrc/"
-    + ("nlcc_frontier.cu" if k in WALK_KERNELS else "lcc_superstep.cu")
+    + ("nlcc_frontier.cu" if k in WALK_KERNELS
+       else "lcc_fused.cu" if k in FUSED_KERNELS else "lcc_superstep.cu")
     for k in KERNELS
 }
 DENSITIES = (0.005, 0.6, 1.0)
-# the bucketed engine's kernels (phases 5-7)
-BUCKET_KERNELS = ("pack_alive", "rev_alive_lookup", "gather_accept_or")
+# the bucketed engine's kernels in the default mode (phases 5-7, 27)
+BUCKET_KERNELS = ("pack_alive", "rev_alive_lookup") + FUSED_KERNELS
 # the mesh superstep's kernels (phases 20-24)
 PAYLOAD = "gather_accept_or_payload"
 SENDS = "pack_sends"
@@ -321,6 +348,18 @@ def ptxas_usage(out):
             rows.append((name, int(m.group(1)), int(m.group(2) or 0), spill))
             name = None
     return rows
+
+
+def reset_launches():
+    """Zero the launch counts of every kernel wrapper."""
+    ops.reset_launches()
+    lf.reset_launches()
+    nf.reset_launches()
+
+
+def superstep_launches():
+    """The launch counts of the LCC superstep kernels."""
+    return {**ops.launches, **lf.launches}
 
 
 def check_errs(errs, where):
@@ -407,23 +446,38 @@ def lp_rows(r):
             for x in r.rows if x.phase == "LP"]
 
 
-def run_s21(g, labels, pattern, constraints, dev, compact):
+def compact_mode(engine, compact):
+    """The s21 engine with its compact continuation on or off: what
+    ``MatchEngine(compact=...)`` sets, without a second engine build."""
+    engine._compact_engine = compact
+    return engine
+
+
+def run_s21(g, labels, pattern, constraints, dev, compact, engine=None):
+    """Phases 5 and 6; phase 6 takes phase 5's engine (``engine``)."""
     tag = "[5]" if compact else "[6]"
-    t0 = time.perf_counter()
-    engine = MatchEngine(g, labels, pattern, constraints, compact=compact, device=dev)
-    torch.cuda.synchronize()
-    log(f"{tag} engine build (host ELL layout + upload): "
-        f"{time.perf_counter() - t0:.3f} s, {engine.lcc.num_slots} slots")
-    ops.reset_launches()
-    nf.reset_launches()
+    if engine is None:
+        t0 = time.perf_counter()
+        engine = MatchEngine(g, labels, pattern, constraints, device=dev)
+        torch.cuda.synchronize()
+        log(f"{tag} engine build (host ELL layout + upload): "
+            f"{time.perf_counter() - t0:.3f} s, {engine.lcc.num_slots} slots")
+    compact_mode(engine, compact)
+    reset_launches()
     r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 compact={compact} warm")
-    launches = dict(ops.launches)
+    launches = superstep_launches()
+    steps = len(lp_rows(r))
     log(f"{tag} warm search: {dt:.4f} s, iterations={r.iterations}, "
-        f"{summary(r)}, kernel launches {launches}, walk kernel launches "
-        f"(nlcc_mode auto) {dict(nf.launches)}")
+        f"{summary(r)}, {steps} supersteps, kernel launches {launches}, walk kernel "
+        f"launches (nlcc_mode auto) {dict(nf.launches)}")
     for k in BUCKET_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k}: no launch during the s21 search")
+    # the default mode's supersteps are the fused kernels, at most 2 launches
+    # of each a superstep; gather_accept_or is the counting mode's ([14])
+    if (launches["continuation_superstep"] < 7 or launches["gather_accept_or"]
+            or max(launches[k] for k in FUSED_KERNELS) > 2 * steps):
+        raise AssertionError(f"s21 compact={compact}: {steps} supersteps, launches {launches}")
     times = []
     for i in range(3):
         r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 compact={compact} run {i}")
@@ -623,7 +677,7 @@ def profile_search(engine, tag, anchors=S21_ANCHORS, phase="[8]"):
         log(f"{phase} {tag}: the profiler recorded no device time (not measured)")
         return
     ours = [e for e in items if any(k in e.key for k in (
-        "pack_alive_kernel", "rev_alive_kernel", "gather_narrow4_kernel",
+        "pack_alive_kernel", "rev_alive_kernel", "gather_narrow4_kernel", "superstep_kernel",
         "gather_wide_kernel", "gather_rowwise_kernel", "expand_count_kernel",
         "expand_write_kernel", "winner_insert_kernel", "winner_mark_kernel",
         "bit_plane_kernel", "plane_summary_kernel", "plane_count_kernel", "plane_write_kernel",
@@ -865,8 +919,7 @@ def run_s21_cycle(g, labels, dev):
     torch.cuda.synchronize()
     log(f"[11] s21 cycle engine build: {time.perf_counter() - t0:.3f} s, "
         f"{engine.lcc.num_slots} slots, {len(constraints)} constraints")
-    ops.reset_launches()
-    nf.reset_launches()
+    reset_launches()
     r, dt, lp, tp = timed_search(engine, S21_CYCLE_ANCHORS, "s21 cycle device warm")
     launches = {**ops.launches, **nf.launches}
     log(f"[11] device warm search: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s), "
@@ -1154,10 +1207,9 @@ def mode_search(g, labels, pattern, constraints, dev, tag, what, **kw):
     engine = MatchEngine(g, labels, pattern, constraints, device=dev, **kw)
     torch.cuda.synchronize()
     log(f"{tag} {what} engine build: {time.perf_counter() - t0:.3f} s")
-    ops.reset_launches()
-    nf.reset_launches()
+    reset_launches()
     r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 {what} warm")
-    launches, walk = dict(ops.launches), dict(nf.launches)
+    launches, walk = superstep_launches(), dict(nf.launches)
     log(f"{tag} {what} warm search: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s), "
         f"iterations={r.iterations}, {summary(r)}, kernel launches {launches}, "
         f"walk kernel launches {walk}")
@@ -1170,13 +1222,17 @@ def mode_search(g, labels, pattern, constraints, dev, tag, what, **kw):
 
 def run_s21_modes(g, labels, pattern, constraints, dev, rows_full):
     """Phases 14-16: the s21 tree search in counting mode, with edge
-    metadata, and on the flat LCC engine. Returns their engines."""
-    counting, _, launches, _ = mode_search(
+    metadata, and on the flat LCC engine. Returns their engines and the
+    counting search's launches."""
+    counting, _, counting_launches, _ = mode_search(
         g, labels, pattern, constraints, dev, "[14]", "counting", counting=True
     )
     for k in ("rev_alive_lookup", "gather_accept_or"):
-        if launches[k] == 0:
+        if counting_launches[k] == 0:
             raise AssertionError(f"{k}: no launch during the s21 counting search")
+    if any(counting_launches[k] for k in FUSED_KERNELS):
+        raise AssertionError(f"s21 counting search launched a fused superstep: "
+                             f"{counting_launches}")
     # the tree corpus's pattern_edge_data carries 55 on every pattern edge
     # (pattern/builtin.py): every graph edge carries 55 too
     values = set(pattern.edge_data.tolist())
@@ -1197,7 +1253,7 @@ def run_s21_modes(g, labels, pattern, constraints, dev, rows_full):
         raise AssertionError("s21 flat engine: no rev_alive_lookup launch")
     log(f"[16] flat engine LP rows equal the bucketed compact=False rows "
         f"({len(rows_full)} rows)")
-    return {"counting": counting, "metadata": meta, "flat": flat}
+    return {"counting": counting, "metadata": meta, "flat": flat}, counting_launches
 
 
 def time_mode_supersteps(engines):
@@ -1806,11 +1862,10 @@ def run_s21_mesh(g, labels, pattern, constraints, dev, errs):
         # the same engine on the full plane is what compact=False sets
         engine._compact_engine = compact
         what = "compact" if compact else "full plane"
-        ops.reset_launches()
-        nf.reset_launches()
+        reset_launches()
         with PayloadCheck(errs) as chk:
             r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 mesh {what} warm")
-        launches[what] = dict(ops.launches)
+        launches[what] = superstep_launches()
         log(f"[22] {what} warm search: {dt:.4f} s (LP {lp:.4f} s, TP {tp:.4f} s), "
             f"iterations={r.iterations}, {summary(r)}, kernel launches {launches[what]} "
             f"({chk.n} payload calls checked against the twin), walk kernel launches "
@@ -1821,7 +1876,9 @@ def run_s21_mesh(g, labels, pattern, constraints, dev, errs):
                 f"other {dt - lp - tp:.4f} s), {r.traversed_edges / dt / 1e6:.2f} M "
                 f"traversed edges/s, LP rows {len(lp_rows(r))}, host loadavg {os.getloadavg()}")
     check_errs(errs, "in the s21 mesh searches")
-    need = {"compact": BUCKET_KERNELS, "full plane": MESH_KERNELS}
+    # compact: the mesh runs the init superstep, the sub-engine the rest
+    need = {"compact": ("pack_alive", "rev_alive_lookup", "continuation_superstep"),
+            "full plane": MESH_KERNELS}
     for what, names in need.items():
         for k in names:
             if launches[what][k] == 0:
@@ -1911,8 +1968,7 @@ def run_s21_mesh_cycle(g, labels, dev, errs):
     )
     torch.cuda.synchronize()
     log(f"[23] s21 cycle mesh engine build: {time.perf_counter() - t0:.3f} s")
-    ops.reset_launches()
-    nf.reset_launches()
+    reset_launches()
     r, dt, lp, tp = timed_search(engine, S21_CYCLE_ANCHORS, "s21 cycle on the mesh")
     walk = dict(nf.launches)
     if engine.nlcc_fallbacks or any(walk[k] == 0 for k in WALK_KERNELS):
@@ -1921,7 +1977,7 @@ def run_s21_mesh_cycle(g, labels, dev, errs):
     log(f"[23] s21 cycle search on {MESH_SHARDS} shards: {dt:.4f} s (LP {lp:.4f} s, "
         f"TP {tp:.4f} s, other {dt - lp - tp:.4f} s), iterations={r.iterations}, "
         f"{summary(r)}, anchors OK {S21_CYCLE_ANCHORS}, nlcc_fallbacks 0; kernel launches "
-        f"{dict(ops.launches)}, walk kernel launches {walk}; TP rows (iteration, "
+        f"{superstep_launches()}, walk kernel launches {walk}; TP rows (iteration, "
         f"constraint, seconds, messages) {tp_rows(r)}")
     log(f"[23] s21 cycle, full-plane lcc_call on the mesh: the payload words that send "
         f"and the slots that read one, % per non-init superstep: "
@@ -2097,6 +2153,228 @@ def run_mesh_processes(g, labels, ref, cards, backend, tag):
         f"{[round(res['build_s'], 2) for res in results]} s)")
 
 
+# -- phase 27: the fused supersteps K1 and K2 ---------------------------------
+
+FUSED_WIDTHS = tuple(8 << i for i in range(11))  # the engine's widths, 8 .. 8192
+
+
+def fused_case(seed, buckets, dev, ranks=1, code8=True, k=5, density=0.6, V=20000):
+    """Seeded inputs of both fused supersteps: ``SuperstepPlanes`` over
+    ``buckets`` ((rows, width, split) in slot order; a split bucket's rows
+    fall in runs of 1-4 rows a segment, the engine's split hubs), a random
+    template of k vertices, and a state: the label tv and tv (bits below
+    k, 30 % zero), alive and tp_flag (pad slot dead) and alive_rev, set
+    with probability ``density``; a fifth of the slots are padding (adj V,
+    label code 0)."""
+    rng = np.random.RandomState(seed)
+    n_codes = 200 if code8 else 1000
+    verts = rng.permutation(V)  # every segment its own vertex
+    widths, rows, seg_id, seg_rows, adj, code = [], [], [], [], [], []
+    used = 0
+    for n, w, split in buckets:
+        runs = []
+        while sum(runs) < n:
+            runs.append(min(n - sum(runs), rng.randint(1, 5) if split else 1))
+        sid = np.repeat(np.arange(len(runs)), runs).astype(np.int64)
+        sv = verts[used : used + len(runs)]
+        used += len(runs)
+        a = rng.randint(0, V, size=(n, w)).astype(np.int32)
+        c = rng.randint(1, n_codes, size=(n, w))
+        pad = rng.rand(n, w) < 0.2
+        a[pad], c[pad] = V, 0
+        widths.append(w)
+        rows.append(sv[sid])
+        seg_id.append(sid)
+        seg_rows.append(sv)
+        adj.append(a)
+        code.append(c.astype(np.uint8 if code8 else np.int32))
+    code_tv = rng.randint(0, 1 << k, size=n_codes)
+    code_tv[rng.rand(n_codes) < 0.3] = 0
+    code_tv[0] = 0
+    planes = lf.build_planes(widths, rows, seg_id, seg_rows, adj, code, code_tv, V, ranks, dev)
+    adj_all = rng.randint(1, 1 << k, size=k)
+    mand = np.where(rng.rand(k) < 0.5, adj_all & (1 << rng.randint(0, k, size=k)), 0)
+    opt = adj_all & ~mand & rng.randint(0, 1 << k, size=k)
+    opt_min = np.where(opt != 0, rng.randint(0, 3, size=k), 0)
+    tmpl = lf.Template(*(tuple(int(x) for x in t) for t in (adj_all, mand, opt, opt_min)))
+
+    def tv_of():
+        t = rng.randint(0, 1 << k, size=V).astype(np.int32)
+        t[rng.rand(V) < 0.3] = 0
+        return torch.from_numpy(t).to(dev)
+
+    def flags(size, dead_pad=True):
+        f = rng.rand(size) < density
+        if dead_pad:
+            f[-1] = False
+        return torch.from_numpy(f).to(dev)
+
+    S = planes.num_slots
+    state = (tv_of(), tv_of(), flags(S + 1), flags(S + 1), flags(S, dead_pad=False))
+    return planes, tmpl, state
+
+
+def fused_errs(planes, tmpl, state, errs):
+    """Both fused supersteps against their twins on one case's inputs."""
+    label_tv, tv, alive, flag, alive_rev = state
+    pairs = {
+        "init_superstep": (
+            lf.init_superstep(planes, label_tv, tmpl),
+            lf.init_superstep_reference(planes, label_tv, tmpl),
+        ),
+        "continuation_superstep": (
+            lf.continuation_superstep(planes, tv, alive, flag, alive_rev, tmpl),
+            lf.continuation_superstep_reference(planes, tv, alive, flag, alive_rev, tmpl),
+        ),
+    }
+    torch.cuda.synchronize()
+    for name, (got, want) in pairs.items():
+        errs[name] = max(errs[name], max(max_err(g, r) for g, r in zip(got, want)))
+
+
+def compare_fused_small(dev, errs):
+    """Phase 27, small cases: both fused supersteps against their twins,
+    exactly: every engine width 8..8192 (the widest a split bucket) with
+    0, 1, 33 or 257 rows, 1, 4 and 2,000 output ranks (the last past the
+    kernel's shared-memory partials), uint8 and int32 label codes,
+    templates of 1 to 16 vertices, flags set at 0.5 %, 60 % and 100 %;
+    then widths 1-4 and slot bases off 8 (one-slot lanes), split hubs in a
+    width-16 bucket (the tests' max_width=16), buckets with no rows, and
+    no buckets."""
+    n_cases = 0
+    for seed in range(4):
+        rng = np.random.RandomState(seed)
+        for ranks in (1, 4, 2000):
+            for code8 in (True, False):
+                n_rows = rng.choice([0, 1, 33, 257], size=len(FUSED_WIDTHS))
+                buckets = [(int(n), w, w == FUSED_WIDTHS[-1]) for n, w in zip(n_rows, FUSED_WIDTHS)]
+                fused_errs(*fused_case(100 * seed + ranks, buckets, dev, ranks, code8,
+                                       k=(5, 16, 1, 7)[seed], density=DENSITIES[seed % 3]), errs)
+                n_cases += 1
+    odd = (
+        [(3, 1, False), (5, 2, False), (7, 4, False), (9, 8, False), (11, 16, False),
+         (13, 64, False), (5, 512, False), (6, 8192, True)],
+        [(50, 8, False), (120, 16, True)],
+        [(0, 8, False), (0, 64, False), (0, 8192, True)],
+        [],
+    )
+    for i, buckets in enumerate(odd):
+        for ranks in (1, 4):
+            fused_errs(*fused_case(1000 + 10 * i + ranks, buckets, dev, ranks), errs)
+            n_cases += 1
+    check_errs({k: errs[k] for k in FUSED_KERNELS}, "at small shapes")
+    log(f"[27] fused supersteps equal their twins on {n_cases} small cases (widths 1..8192, "
+        f"split hubs, ranks 1/4/2000, uint8 and int32 codes, empty buckets): "
+        f"{ {k: errs[k] for k in FUSED_KERNELS} }")
+
+
+class FusedCheck:
+    """Wraps the engine's fused supersteps (``engine/lcc_bucketed.py``):
+    every launch also runs its twin on the same inputs (the twin launches
+    no kernel) and records the largest difference."""
+
+    def __init__(self, errs):
+        self.errs, self.n = errs, dict.fromkeys(FUSED_KERNELS, 0)
+        self.real = {k: getattr(lcc_bucketed, k) for k in FUSED_KERNELS}
+        self.twins = {"init_superstep": lf.init_superstep_reference,
+                      "continuation_superstep": lf.continuation_superstep_reference}
+
+    def __enter__(self):
+        for name in FUSED_KERNELS:
+            setattr(lcc_bucketed, name, self._checked(name))
+        return self
+
+    def _checked(self, name):
+        def call(*args):
+            got = self.real[name](*args)
+            want = self.twins[name](*args)
+            torch.cuda.synchronize()
+            self.errs[name] = max(self.errs[name], max(max_err(g, w) for g, w in zip(got, want)))
+            self.n[name] += 1
+            return got
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(lcc_bucketed, name, fn)
+
+
+def fused_bound_ms(lcc, alive_rev):
+    """Least time of each fused superstep on these inputs: the bytes it must
+    move over the HBM rate. Both read each segment's vertex (8 B), its tv
+    (4 B), the split hubs' row starts, the ranks' planes where there are
+    several, and write new_tv (4 B a vertex), new_alive and the cleared
+    tp_flag (S + 1 B each) and the stats. K1 also reads the label codes
+    and their table; K2 reads alive_rev, alive and tp_flag (a byte a slot
+    each) and, only where alive_rev is set, the neighbour id (4 B) and the
+    tv entries of the distinct neighbours (4 B each)."""
+    pl = lcc._planes
+    s, v, r = pl.num_slots, pl.num_vertices, pl.num_ranks
+    n_seg = pl.seg_rows.numel()
+    common = (12 * n_seg + 8 * pl.seg_start.numel() + (8 * n_seg if r > 1 else 0)
+              + 4 * v + 2 * (s + 1) + 8 * (3 * r + 1))
+    k1 = common + s * pl.code.element_size() + 4 * pl.code_tv.numel()
+    n_rev = int(alive_rev.sum())
+    distinct = int(torch.unique(pl.adj[alive_rev]).numel())
+    k2 = common + s + 2 * (s + 1) + 4 * n_rev + 4 * distinct
+    return {"init_superstep": k1, "continuation_superstep": k2}
+
+
+def fused_at_s21(engine, errs):
+    """Phase 27 at s21, on phases 5-6's engine: one s21 tree search each
+    with the compact path and with compact=False in which every fused
+    superstep is held against its twin on the same inputs, anchors
+    asserted; then both kernels at the
+    post-init state of the full graph (K2 over every slot), timed by
+    CUDA-graph replay in turns (twin, kernel, kernel, twin) beside the
+    twin (the plain per-bucket superstep), each also eagerly (host dispatch
+    included), and their bytes bounds. Phase 17 times the engine's whole
+    continuation superstep (pack_alive, rev_alive_lookup, K2)."""
+    for compact, what in ((True, "compact"), (False, "compact=False")):
+        with FusedCheck(errs) as chk:
+            r = compact_mode(engine, compact).run()
+        check_anchors(r, S21_ANCHORS, f"[27] s21 {what} checked search")
+        log(f"[27] s21 tree {what}: every fused superstep equals its twin "
+            f"({chk.n} checked, {len(lp_rows(r))} supersteps), anchors OK")
+    check_errs({k: errs[k] for k in FUSED_KERNELS}, "on the s21 searches' supersteps")
+
+    lcc = engine.lcc
+    st, _, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
+    alive_rev = ops.rev_alive_lookup(lcc._rev_flat, ops.alive_table(st.alive))
+    planes, tmpl = lcc._planes, lcc._tmpl
+    fns = {
+        "init_superstep": (
+            lambda: lf.init_superstep(planes, lcc.label_tv, tmpl),
+            lambda: lf.init_superstep_reference(planes, lcc.label_tv, tmpl),
+        ),
+        "continuation_superstep": (
+            lambda: lf.continuation_superstep(planes, st.tv, st.alive, st.tp_flag, alive_rev, tmpl),
+            lambda: lf.continuation_superstep_reference(
+                planes, st.tv, st.alive, st.tp_flag, alive_rev, tmpl),
+        ),
+    }
+    nbytes = fused_bound_ms(lcc, alive_rev)
+    split = planes.table[:, lf.SPLIT] == 1
+    longest = int(planes.table[split, lf.W].max() * planes.seg_start.diff().max()) if split.any() else 0
+    log(f"[27] post-init state: {int(st.alive.sum())} alive slots of {lcc.num_slots}, "
+        f"alive_rev set {int(alive_rev.sum())}, {planes.seg_rows.numel()} segments in "
+        f"{len(planes.table)} buckets (rows, width) {planes.table[:, :2].tolist()}, the longest "
+        f"split segment {longest} slots; superstep_bytes {superstep_bytes(lcc, init=True)} B "
+        f"(init), {superstep_bytes(lcc)} B (continuation)")
+    times = {}
+    for k, (kernel, plain) in fns.items():
+        raw = [time_cuda(plain, reps=5), time_cuda(kernel), time_cuda(kernel),
+               time_cuda(plain, reps=5)]
+        k_ms, p_ms = (raw[1] + raw[2]) / 2, (raw[0] + raw[3]) / 2
+        bound = nbytes[k] / HBM_BYTES_PER_MS
+        times[k] = (k_ms, p_ms, bound)
+        log(f"[27] {k}: kernel {raw[1]:.4f}/{raw[2]:.4f} ms, twin {raw[0]:.4f}/{raw[3]:.4f} "
+            f"ms (CUDA-graph replay); eager kernel {time_cuda(kernel, graph=False):.4f} ms, "
+            f"eager twin {time_cuda(plain, reps=3, graph=False):.4f} ms; bound {bound:.4f} ms "
+            f"({nbytes[k]} B, bytes), {100 * bound / k_ms:.1f} % of bound")
+    return times
+
+
 TOOL_SHARDS = (1, 2, 4)  # phase 26's mesh sizes, shards of the one card
 TOOL_SCALE = 17  # phase 26's scaling and communication-volume graph
 BENCH_CHILD_TIMEOUT = 300  # seconds the bench_torch.py process may take
@@ -2129,10 +2407,12 @@ def run_tools(g, labels, dev):
         f"step-0 rows (itr, phase, step, s) {[(i, p, st, round(x, 4)) for i, p, st, x in split['rows']]}")
     dec = init_decompose.decompose(engine.lcc, reps=3)
     parts = {k: round(v, 4) for k, v in dec["parts_ms"].items()}
-    log(f"[26] init_decompose, s21 init superstep, device ms by part {parts}, total "
-        f"{dec['profiled_total_ms']:.4f} ms (profiled window {dec['profiled_wall_ms']:.3f} ms "
-        f"on the host clock); alone {dec['superstep_best_ms']:.4f} ms of "
-        f"{[round(x, 4) for x in dec['superstep_ms']]} against its bytes bound "
+    log(f"[26] init_decompose, s21 init superstep's plain twin, device ms by part {parts}, "
+        f"total {dec['profiled_total_ms']:.4f} ms (profiled window "
+        f"{dec['profiled_wall_ms']:.3f} ms on the host clock); the twin alone "
+        f"{dec['plain_best_ms']:.4f} ms of {[round(x, 4) for x in dec['plain_ms']]}, the "
+        f"engine's (K1) {dec['superstep_best_ms']:.4f} ms of "
+        f"{[round(x, 4) for x in dec['superstep_ms']]}, against its bytes bound "
         f"{dec['bound_ms']:.4f} ms ({dec['bound_bytes']} B); post-init alive_pairs "
         f"({dec['alive_pairs']} pairs) {dec['alive_pairs_best_ms']:.4f} ms of "
         f"{[round(x, 4) for x in dec['alive_pairs_ms']]}")
@@ -2203,6 +2483,7 @@ def main() -> int:
 
     errs = {k: 0 for k in KERNELS}
     compare_kernels_small(dev, errs)
+    compare_fused_small(dev, errs)
     compare_walk_kernels_small(dev, errs)
     compare_walk_routes_small(dev, errs)
 
@@ -2239,16 +2520,19 @@ def main() -> int:
         pattern, constraints = load_tree_pattern(tmp)
     log(f"[5] R-MAT s21: V={g.num_vertices} E={g.num_edges}; generate "
         f"{t1 - t0:.2f} s, CSR + labels {t2 - t1:.2f} s")
-    compact, launches, _ = run_s21(g, labels, pattern, constraints, dev, True)
-    full, launches_full, r_full = run_s21(g, labels, pattern, constraints, dev, False)
-    times = kernels_at_s21(full.lcc, errs)["post-init"]
-    profile_search(compact, "s21 compact")
-    profile_search(full, "s21 compact=False")
-    del full
+    engine, launches, _ = run_s21(g, labels, pattern, constraints, dev, True)
+    _, launches_full, r_full = run_s21(g, labels, pattern, constraints, dev, False, engine)
+    times = kernels_at_s21(engine.lcc, errs)["post-init"]
+    t0 = time.perf_counter()
+    times.update(fused_at_s21(engine, errs))
+    log(f"[27] the fused supersteps at s21 took {time.perf_counter() - t0:.1f} s")
+    profile_search(compact_mode(engine, True), "s21 compact")
+    profile_search(compact_mode(engine, False), "s21 compact=False")
+    compact_mode(engine, True)
 
     cycle, walk_launches = run_s21_cycle(g, labels, dev)
     launches.update(walk_launches)
-    tree_rows, _ = constraint_placements(compact, "s21 tree")
+    tree_rows, _ = constraint_placements(engine, "s21 tree")
     cycle_rows, calls = constraint_placements(cycle, "s21 cycle", record=0)
     times.update(walk_kernels_at_s21(calls, errs))
     for tag, rows in (("tree", tree_rows), ("cycle", cycle_rows)):
@@ -2258,10 +2542,14 @@ def main() -> int:
     host_profile(cycle.run, "[13] s21 cycle nlcc_mode=device search")
     del cycle
 
-    engines = run_s21_modes(g, labels, pattern, constraints, dev, lp_rows(r_full))
-    engines["default"] = compact
+    engines, counting_launches = run_s21_modes(
+        g, labels, pattern, constraints, dev, lp_rows(r_full))
+    # gather_accept_or's path is the counting mode's superstep since the
+    # default mode fused its own
+    launches["gather_accept_or"] = counting_launches["gather_accept_or"]
+    engines["default"] = engine
     time_mode_supersteps(engines)
-    del engines, compact
+    del engines, engine
     torch.cuda.empty_cache()
 
     run_algorithms_s21(g, dev)

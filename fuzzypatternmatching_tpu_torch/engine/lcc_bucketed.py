@@ -9,23 +9,27 @@ bucket and their partial results combined per segment. The slot layout
 (bucket order, ``slot_base``, ``rev``, the edge-to-slot map) is the JAX
 engine's, so states convert between the two (``state_from_jax``).
 
-A superstep runs per bucket:
+In the default mode a superstep is one fused pass over every bucket
+(``ops/lcc_fused.py``, the tables of ``SuperstepPlanes``):
 
-* init (global init step): the neighbour candidates are the neighbours'
-  label bitsets, replayed from per-slot label codes; accept test against
-  the row's pattern-adjacency mask, row OR, keep mask — plain torch;
-* otherwise: once per superstep over every bucket, ``alive_table`` packs
-  the alive flags (words and group summary) and ``rev_alive_lookup`` reads
-  the alive bit of every slot's reverse edge (``rev`` is one flat [S]
-  tensor, each bucket's plane a view of it); then per bucket
-  ``gather_accept_or`` on the tv table, the keep mask and the alive update
-  (``ops/lcc_superstep.py``).
+* init (global init step): ``init_superstep`` (K1). The neighbour
+  candidates are the neighbours' label bitsets, replayed from per-slot
+  label codes; accept test against the row's pattern-adjacency mask, row
+  OR, the split hubs' segment OR, keep mask, alive update and counters;
+* otherwise: ``alive_table`` packs the alive flags (words and group
+  summary) and ``rev_alive_lookup`` reads the alive bit of every slot's
+  reverse edge (``rev`` is one flat [S] tensor), then
+  ``continuation_superstep`` (K2) gathers the tv of the senders whose
+  reverse edge is alive and applies the same epilogue
+  (``ops/lcc_superstep.py`` for the first two).
 
-Two search modes change the acceptance, as in the JAX engine:
+Two search modes change the acceptance, as in the JAX engine, and run per
+bucket:
 
 * counting (``counting=True``): candidate i also needs at least
   ``required[i, j]`` accepted neighbours of label class j (per-slot sender
-  class codes; row sums, per-segment sums for split hubs);
+  class codes; row sums, per-segment sums for split hubs); after the
+  lookup ``gather_accept_or`` gives tn, accept and the send counts;
 * edge metadata (``edge_meta``): a slot's metadata code selects a row of
   the allow table, and tn is accumulated separately per receiver bit from
   the parents that edge may deliver toward that bit. Its acceptance and
@@ -44,6 +48,17 @@ import numpy as np
 import torch
 
 from ..graph.csr import Graph
+from ..ops.lcc_fused import (
+    MAX_TEMPLATE_VERTICES,
+    Template,
+    bucket_views,
+    build_planes,
+    continuation_superstep,
+    init_superstep,
+    keep_mask_per_i,
+    or_over_bits,
+    segment_or,
+)
 from ..ops.lcc_superstep import (
     alive_table,
     gather_accept_or,
@@ -52,53 +67,6 @@ from ..ops.lcc_superstep import (
 )
 from ..pattern.pattern_graph import PatternGraph
 from .lazy_state import merged_flag_ids, normalized_edge_ids, normalized_flag_ids
-
-MAX_TEMPLATE_VERTICES = 16  # tv and the kernels' tables hold 16 bits
-
-
-def or_over_bits(tv: torch.Tensor, adj_all: list) -> torch.Tensor:
-    """OR of the pattern adjacency sets ``adj_all[i]`` over each candidate
-    bit i of ``tv``: the mask an incoming message must meet."""
-    m = torch.zeros_like(tv)
-    for i, bits in enumerate(adj_all):
-        m = m | (((tv >> i) & 1) * bits)
-    return m
-
-
-def keep_mask_per_i(tn_list: list, mand: list, opt: list, opt_min: list):
-    """Acceptance of each template vertex i against its own tn
-    (``tn_list[i]``: metadata mode hears per receiver bit, the default mode
-    passes one tn for every bit), packed into a keep mask: the mandatory
-    neighbour classes all heard, and the optional ones heard together with
-    at least ``opt_min[i]`` of them (the fuzzy rule)."""
-    keep = torch.zeros_like(tn_list[0])
-    for i, tn in enumerate(tn_list):
-        ok = (mand[i] & ~tn) == 0
-        if opt_min[i] > 0:
-            t = opt[i] & tn
-            count = torch.zeros_like(t)
-            for bit in range(MAX_TEMPLATE_VERTICES):
-                count = count + ((t >> bit) & 1)
-            ok = ok & (t == opt[i]) & (count >= opt_min[i])
-        keep = keep | (ok.to(torch.int32) << i)
-    return keep
-
-
-def segment_or(values: torch.Tensor, seg_id: torch.Tensor, n_seg: int):
-    """OR-combine int32 16-bit values per segment (split-hub partials)
-    through a max over bit planes."""
-    shifts = torch.arange(
-        MAX_TEMPLATE_VERTICES, dtype=torch.int32, device=values.device
-    )
-    planes = (values[:, None] >> shifts) & 1
-    seg = torch.zeros(
-        (n_seg, MAX_TEMPLATE_VERTICES), dtype=torch.int32,
-        device=values.device,
-    ).scatter_reduce(
-        0, seg_id[:, None].expand_as(planes), planes, "amax"
-    )
-    return (seg << shifts).sum(dim=1, dtype=torch.int32)
-
 
 @dataclass
 class Bucket:
@@ -289,7 +257,19 @@ class BucketedLccEngine:
         dev = self.device
         lab_tv = pattern.label_match_bitset(np.asarray(labels)).astype(np.int32)
         self.label_tv = torch.from_numpy(lab_tv).to(dev)
-        self._code_tv = torch.from_numpy(code_tv).to(dev)
+        # flat planes over every bucket and the bucket table, what the fused
+        # supersteps read (ops/lcc_fused.py); each bucket's planes below
+        # are views of them
+        self._planes = build_planes(
+            [b.adj.shape[1] for b in self.buckets], [b.rows for b in self.buckets],
+            [b.seg_id for b in self.buckets], [b.seg_rows for b in self.buckets],
+            [b.adj for b in self.buckets], [code_pad[b.adj] for b in self.buckets],
+            code_tv, v, num_ranks, dev,
+        )
+        self._tmpl = Template(
+            tuple(self.adj_all), tuple(self.mand), tuple(self.opt), tuple(self.opt_min)
+        )
+        self._code_tv = self._planes.code_tv
         # rev of every slot, bucket after bucket: one lookup launch covers
         # the whole slot space
         self._rev_flat = torch.from_numpy(
@@ -299,18 +279,18 @@ class BucketedLccEngine:
             )
         ).to(dev)
         self._dev = []
-        for b, meta, cls in zip(self.buckets, slot_meta, slot_cls):
-            rows = torch.from_numpy(b.rows.astype(np.int64)).to(dev)
-            seg_rows = torch.from_numpy(b.seg_rows.astype(np.int64)).to(dev)
+        for b, views, meta, cls in zip(
+            self.buckets, bucket_views(self._planes), slot_meta, slot_cls
+        ):
             self._dev.append(
                 _DeviceBucket(
-                    rows=rows,
-                    adj=torch.from_numpy(b.adj).to(dev),
-                    code=torch.from_numpy(code_pad[b.adj]).to(dev),
-                    seg_id=torch.from_numpy(b.seg_id.astype(np.int64)).to(dev),
-                    seg_rows=seg_rows,
-                    own_rows=rows % num_ranks,
-                    own_seg=seg_rows % num_ranks,
+                    rows=torch.from_numpy(b.rows.astype(np.int64)).to(dev),
+                    adj=views.adj,
+                    code=views.code,
+                    seg_id=views.seg_id,
+                    seg_rows=views.seg_rows,
+                    own_rows=views.own_rows,
+                    own_seg=views.own_seg,
                     meta=None if meta is None else torch.from_numpy(meta).to(dev),
                     cls=None if cls is None else torch.from_numpy(cls).to(dev),
                 )
@@ -355,7 +335,16 @@ class BucketedLccEngine:
     def _superstep(self, tv, alive, tp_flag, *, init: bool):
         """One superstep over every bucket. Returns (tv, alive, tp_flag,
         stats) with stats = [av per rank | ae per rank | msg per rank |
-        died] as an int64 device tensor."""
+        died] as an int64 device tensor. The default mode is one fused
+        superstep (ops/lcc_fused.py); counting and edge metadata run per
+        bucket below."""
+        if not self.counting and self.meta_allow is None:
+            if init:
+                return init_superstep(self._planes, tv, self._tmpl)
+            alive_rev = rev_alive_lookup(self._rev_flat, alive_table(alive))
+            return continuation_superstep(
+                self._planes, tv, alive, tp_flag, alive_rev, self._tmpl
+            )
         dev = self.device
         r = self.num_ranks
         meta = self.meta_allow is not None
@@ -413,7 +402,7 @@ class BucketedLccEngine:
                         n_seg, dtype=torch.int32, device=dev
                     ).index_add_(0, d.seg_id, in_map.to(torch.int32)) > 0
                 new_tv_seg = tv_seg & self._keep_mask_per_i(tn_list)
-            else:
+            else:  # counting
                 adj_mask_rows = self._or_over_bits(tv_seg)[d.seg_id]
                 if init:
                     accept = (p & adj_mask_rows[:, None]) != 0
@@ -424,13 +413,11 @@ class BucketedLccEngine:
                     tn_rows, accept, sendok_rows = gather_accept_or(
                         d.adj, alive_rev, adj_mask_rows, tv_table
                     )
-                    if self.counting:
-                        pa = torch.where(accept, tv_table[d.adj], 0)
+                    pa = torch.where(accept, tv_table[d.adj], 0)
                 tn = segment_or(tn_rows, d.seg_id, n_seg) if split else tn_rows
                 in_map = tn != 0
                 new_tv_seg = tv_seg & self._keep_mask(tn)
-                if self.counting:
-                    acc = [(pa & self.adj_all[i]) != 0 for i in range(self.k)]
+                acc = [(pa & self.adj_all[i]) != 0 for i in range(self.k)]
             if self.counting:
                 new_tv_seg = new_tv_seg & self._count_mask(d, acc, n_seg)
 

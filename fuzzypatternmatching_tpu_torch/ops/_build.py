@@ -49,6 +49,22 @@ _SIGNATURES = {
             ctypes.c_int32, _P,
         ],
     },
+    "lcc_fused": {
+        # code, code_bytes, code_tv, code_count, then the common tail
+        "fpm_init_superstep": [
+            _P, ctypes.c_int32, _P, ctypes.c_int64,
+            _P, ctypes.c_int32, ctypes.c_int64, _P, _P, _P, _P, ctypes.c_int64, _P,
+            ctypes.c_int32, _P, _P, _P, _P,
+        ],
+        # adj, alive_rev, alive, tp_flag, then the common tail: table,
+        # buckets, segments, seg_rows, seg_start, own_seg, tv, V, template,
+        # ranks, new_tv, new_alive, stats, stream
+        "fpm_continuation_superstep": [
+            _P, _P, _P, _P,
+            _P, ctypes.c_int32, ctypes.c_int64, _P, _P, _P, _P, ctypes.c_int64, _P,
+            ctypes.c_int32, _P, _P, _P, _P,
+        ],
+    },
     "nlcc_frontier": {
         "fpm_expand_count": [
             _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P,

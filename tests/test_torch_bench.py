@@ -190,6 +190,7 @@ def test_init_decompose_parts_within_the_total(tmp_path, monkeypatch, capsys):
     for part in ("entry gather", "label replay", "acceptance", "row OR", "exit writes"):
         assert parts[part] > 0, part
     assert len(rec["superstep_ms"]) == 2 and rec["superstep_best_ms"] == min(rec["superstep_ms"])
+    assert len(rec["plain_ms"]) == 2 and rec["plain_best_ms"] == min(rec["plain_ms"])
     assert rec["alive_pairs"] > 0 and rec["card"] == "cpu"
     # the init superstep reads a 1-byte label code a slot in place of the
     # state, the neighbour ids and rev

@@ -4,7 +4,10 @@
 
 The benchmark search's only superstep over the whole graph is the
 bucketed engine's global init superstep (``engine/lcc_bucketed.py``
-``_superstep(init=True)``). One warm init superstep on the workload of
+``_superstep(init=True)``), on the card one launch of the fused kernel K1
+(``ops/lcc_fused.py`` ``init_superstep``). Its plain twin
+(``init_superstep_reference``, the per-bucket torch the engine ran before
+the kernel) is what is split: one warm call on the workload of
 ``bench_torch.py`` (``BENCH_SCALE``, default 21) runs under
 ``torch.profiler``, each torch call in a profiler range named after the
 part of the superstep whose source line (or helper) made it; each
@@ -21,8 +24,9 @@ range's part:
   counters        send counts, alive edges, live vertices, died flag
   other           the rest (allocations of the outputs)
 
-The parts sum to the profiled total. Beside them: the superstep timed
-alone (device synchronised, each of ``--reps`` calls and the best), its bytes
+The parts sum to the profiled total. Beside them: the engine's superstep
+(the kernel on the card) and the twin, each timed alone (device
+synchronised, each of ``--reps`` calls and the best), the bytes
 bound (``tools_torch.common.superstep_bytes(init=True)`` over the card's
 3.35 TB/s), and the post-init read timed apart (``alive_pairs``: a device
 nonzero over the alive slots and a sort of their keys, then the download).
@@ -54,7 +58,7 @@ sys.path.insert(0, REPO)
 import bench_torch  # noqa: E402
 from fuzzypatternmatching_tpu_torch.engine import lcc_bucketed  # noqa: E402
 from fuzzypatternmatching_tpu_torch.engine.lcc_bucketed import BucketedLccEngine  # noqa: E402
-from fuzzypatternmatching_tpu_torch.ops import lcc_superstep  # noqa: E402
+from fuzzypatternmatching_tpu_torch.ops import lcc_fused, lcc_superstep  # noqa: E402
 from tools_torch.common import (  # noqa: E402
     CACHE,
     HBM_BYTES_PER_MS,
@@ -77,13 +81,13 @@ BY_FUNCTION = {
 # a line of _superstep itself, by what it computes
 BY_LINE = (
     ("entry gather", re.compile(r"tv\[d\.seg_rows\]")),
-    ("label replay", re.compile(r"_code_tv\[")),
+    ("label replay", re.compile(r"code_tv\[")),
     ("counters", re.compile(r"send_?ok|ae_rows|died = |av \+=|ae \+=|msg \+=|index_add_|stats = ")),
     ("acceptance", re.compile(r"accept = |torch\.where\(accept|adj_mask_rows = ")),
     ("keep mask", re.compile(r"new_tv_seg = |in_map = |died_b = ")),
     ("exit writes", re.compile(r"new_alive|new_tv\[|row_live|live_seg = ")),
 )
-SOURCES = {os.path.abspath(m.__file__) for m in (lcc_bucketed, lcc_superstep)}
+SOURCES = {os.path.abspath(m.__file__) for m in (lcc_bucketed, lcc_fused, lcc_superstep)}
 LABEL = "init part: "
 
 
@@ -96,7 +100,7 @@ def part_of_caller() -> str:
         if os.path.abspath(code.co_filename) in SOURCES:
             if code.co_name in BY_FUNCTION:
                 return BY_FUNCTION[code.co_name]
-            if code.co_name == "_superstep":
+            if code.co_name == "_superstep_reference":
                 text = linecache.getline(code.co_filename, frame.f_lineno)
                 for part, pattern in BY_LINE:
                     if pattern.search(text):
@@ -114,13 +118,17 @@ class _LabelParts(TorchFunctionMode):
             return func(*args, **(kwargs or {}))
 
 
+def plain_init(lcc: BucketedLccEngine):
+    """The plain twin of the engine's init superstep."""
+    return lcc_fused.init_superstep_reference(lcc._planes, lcc.label_tv, lcc._tmpl)
+
+
 def profile_split(lcc: BucketedLccEngine) -> tuple[dict, float]:
-    """({part: ms}, window wall ms) of one warm init superstep: each
+    """({part: ms}, window wall ms) of one warm plain init superstep: each
     operator's own device time (CPU time on the CPU) under its part's
     range."""
     dev = lcc.device
-    state = lcc.init_state()
-    step = lambda: lcc._superstep(lcc.label_tv, state.alive, state.tp_flag, init=True)  # noqa: E731
+    step = lambda: plain_init(lcc)  # noqa: E731
     step()
     clock(dev)
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -149,14 +157,18 @@ def profile_split(lcc: BucketedLccEngine) -> tuple[dict, float]:
     return ms, wall_ms
 
 
-def time_init(lcc: BucketedLccEngine, reps: int) -> list[float]:
-    """Milliseconds of each of ``reps`` init supersteps, each synchronised."""
+def time_init(lcc: BucketedLccEngine, reps: int, plain: bool = False) -> list[float]:
+    """Milliseconds of each of ``reps`` init supersteps, each synchronised:
+    the engine's (``plain``: the twin's)."""
     dev = lcc.device
     state = lcc.init_state()
     out = []
     for _ in range(reps + 1):
         t0 = clock(dev)
-        lcc._superstep(lcc.label_tv, state.alive, state.tp_flag, init=True)
+        if plain:
+            plain_init(lcc)
+        else:
+            lcc._superstep(lcc.label_tv, state.alive, state.tp_flag, init=True)
         out.append((clock(dev) - t0) * 1e3)
     return out[1:]  # the first is a warm-up
 
@@ -178,6 +190,7 @@ def decompose(lcc: BucketedLccEngine, reps: int = 5) -> dict:
     ms, wall_ms = profile_split(lcc)
     total = sum(ms.values())
     times = time_init(lcc, reps)
+    plain = time_init(lcc, reps, plain=True)
     nbytes = superstep_bytes(lcc, init=True)
     pairs_ms, n_pairs = time_alive_pairs(lcc, reps)
     return {
@@ -186,6 +199,8 @@ def decompose(lcc: BucketedLccEngine, reps: int = 5) -> dict:
         "profiled_wall_ms": wall_ms,
         "superstep_ms": times,
         "superstep_best_ms": min(times),
+        "plain_ms": plain,
+        "plain_best_ms": min(plain),
         "bound_bytes": nbytes,
         "bound_ms": nbytes / HBM_BYTES_PER_MS,
         "alive_pairs_ms": pairs_ms,
@@ -205,8 +220,10 @@ def print_decomposition(rec: dict) -> None:
     print(f"  {'total':<13} {total:10.4f} ms ({rec['time_kind']} time; the profiled "
           f"window {rec['profiled_wall_ms']:.4f} ms on the host clock)", flush=True)
     print(f"init superstep alone: best {rec['superstep_best_ms']:.4f} ms of "
-          f"{[round(x, 4) for x in rec['superstep_ms']]}; bytes bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_bytes']} B over {HBM_BYTES_PER_MS:.3g} B/ms)", flush=True)
+          f"{[round(x, 4) for x in rec['superstep_ms']]} (the plain twin: best "
+          f"{rec['plain_best_ms']:.4f} ms of {[round(x, 4) for x in rec['plain_ms']]}); bytes "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_bytes']} B over "
+          f"{HBM_BYTES_PER_MS:.3g} B/ms)", flush=True)
     print(f"post-init read (alive_pairs, {rec['alive_pairs']} pairs): best "
           f"{rec['alive_pairs_best_ms']:.4f} ms of "
           f"{[round(x, 4) for x in rec['alive_pairs_ms']]}", flush=True)
@@ -225,7 +242,8 @@ def main(argv=None) -> int:
     log(f"building the bucketed engine (s{scale}, {dev})...")
     lcc = BucketedLccEngine(g, labels, pattern, device=dev)
     rec = {"scale": scale, **decompose(lcc, args.reps), **stamp(dev)}
-    print(f"bucketed init superstep, R-MAT s{scale}, {rec['card']}:", flush=True)
+    print(f"bucketed init superstep (its plain twin by part), R-MAT s{scale}, {rec['card']}:",
+          flush=True)
     print_decomposition(rec)
     out = args.out or os.path.join(CACHE, f"init_decompose_s{scale}.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

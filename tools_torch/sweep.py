@@ -47,6 +47,7 @@ sys.path.insert(0, REPO)
 
 import bench_torch  # noqa: E402
 from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine  # noqa: E402
+from fuzzypatternmatching_tpu_torch.ops import lcc_fused  # noqa: E402
 from fuzzypatternmatching_tpu_torch.ops import lcc_superstep as ops  # noqa: E402
 from fuzzypatternmatching_tpu_torch.utils.dist import build_mesh  # noqa: E402
 from tools_torch.common import CACHE, clock, device_of, log, stamp  # noqa: E402
@@ -131,10 +132,11 @@ def run_cell(scale, engine, mode, runs, dev, corpus="tree", shards=1):
     eng = MatchEngine(g, labels, pattern, constraints, lcc_engine=engine, device=dev, **kw)
     log(f"  warm-up scale={scale} engine={engine} mode={mode}...")
     ops.reset_launches()
+    lcc_fused.reset_launches()
     t0 = clock(dev)
     r = eng.run()
     warmup = clock(dev) - t0
-    launches = dict(ops.launches)
+    launches = {**ops.launches, **lcc_fused.launches}
     times = []
     for i in range(runs):
         t0 = clock(dev)
