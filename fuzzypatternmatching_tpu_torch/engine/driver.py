@@ -24,6 +24,18 @@ metadata, never on the single-device ``DeviceNlcc``.
 ``superstep_timing=True`` runs one LCC call per superstep and records each
 one's own seconds (the reference's per-step brackets, beta.cpp:592-596).
 
+While a torch profiler records, ``run()`` keeps its spans and counters on
+the result (``utils/trace.py``): ``fpm.search`` around the whole run;
+``fpm.lcc`` around each LCC phase, with ``fpm.lcc.call`` (an LCC call on
+the full engine, its stats read included), ``fpm.lcc.download`` (the
+state's tv and alive pairs) and ``fpm.lcc.compact`` (the compact
+continuation: ``.closure``, ``.call``, ``.back``); ``fpm.nlcc`` around
+each constraint, with ``fpm.nlcc.csr``, ``fpm.nlcc.place``,
+``fpm.nlcc.walk.host`` or ``fpm.nlcc.walk.device`` and ``fpm.nlcc.marks``
+(the outcome applied and the TP row counted), and any LCC phase it causes;
+``fpm.state`` (each host read of the state), ``fpm.update`` (each upload
+of tv and marks) and ``fpm.result`` (the final read and the active sets).
+
 The positional parameters are the JAX ``MatchEngine``'s, in its order;
 ``device`` is keyword-only. ``lcc_pallas`` is taken and ignored: in the JAX
 package it chose the Pallas superstep, whose results equal the XLA one's,
@@ -41,6 +53,7 @@ import torch
 from ..graph.csr import Graph, from_edges
 from ..pattern.nonlocal_constraint import NonLocalConstraint
 from ..pattern.pattern_graph import PatternGraph
+from ..utils import trace
 from .lcc import LccEngine
 from .lcc_bucketed import BucketedLccEngine
 from .nlcc import (
@@ -218,13 +231,18 @@ class MatchEngine:
         """One LCC call. ``tp_mark_eids`` (original CSR edge ids carrying
         token-passing success marks) are translated into the pruned
         subgraph's edge ids, so the compact continuation runs across them."""
+        with trace.span("fpm.lcc"):
+            return self._lcc_calls(state, global_init, itr, result, tp_mark_eids)
+
+    def _lcc_calls(self, state, global_init, itr, result, tp_mark_eids):
         if self.superstep_timing:
             # one LCC call per superstep, each timed on its own
             rows, died_any, first = [], False, global_init
             for _ in range(self.pattern.diameter):
                 self._sync()
                 t0 = time.perf_counter()
-                state, r1, d1 = self.lcc.lcc_call(state, first, n_steps=1)
+                with trace.span("fpm.lcc.call"):
+                    state, r1, d1 = self.lcc.lcc_call(state, first, n_steps=1)
                 self._sync()
                 dt = time.perf_counter() - t0
                 died_any = died_any or d1
@@ -237,7 +255,8 @@ class MatchEngine:
             return state, died_any
         if not (self._compact_ok and self._compact_engine):
             t0 = time.perf_counter()
-            state, rows, died = self.lcc.lcc_call(state, global_init)
+            with trace.span("fpm.lcc.call"):
+                state, rows, died = self.lcc.lcc_call(state, global_init)
             dt = (time.perf_counter() - t0) / max(len(rows), 1)
             self._emit_lp_rows(rows, dt, itr, result)
             return state, died
@@ -251,23 +270,27 @@ class MatchEngine:
         rows_all = []
         steps_left = self.pattern.diameter
         if global_init:
-            state, r1, d1 = self.lcc.lcc_call(state, True, n_steps=1)
+            with trace.span("fpm.lcc.call"):
+                state, r1, d1 = self.lcc.lcc_call(state, True, n_steps=1)
             rows_all += r1
             died_any = died_any or d1
             steps_left -= 1
         if steps_left > 0:
-            tv = self.lcc.tv_host(state)
-            arow, acol = self.lcc.alive_pairs(state)
+            with trace.span("fpm.lcc.download"):
+                tv = self.lcc.tv_host(state)
+                arow, acol = self.lcc.alive_pairs(state)
             if len(arow) == 0 or len(arow) > self.graph.num_edges // 4:
-                state, r2, d2 = self.lcc.lcc_call(
-                    state, False, n_steps=steps_left
-                )
+                with trace.span("fpm.lcc.call"):
+                    state, r2, d2 = self.lcc.lcc_call(
+                        state, False, n_steps=steps_left
+                    )
                 rows_all += r2
                 died_any = died_any or d2
             else:
-                state, r2, d2 = self._compact_call(
-                    tv, arow, acol, steps_left, tp_mark_eids
-                )
+                with trace.span("fpm.lcc.compact"):
+                    state, r2, d2 = self._compact_call(
+                        tv, arow, acol, steps_left, tp_mark_eids
+                    )
                 rows_all += r2
                 died_any = died_any or d2
         dt = (time.perf_counter() - t0) / max(len(rows_all), 1)
@@ -279,54 +302,66 @@ class MatchEngine:
         set: a live sender edge (u,v) delivers into receiver slot (v,u) even
         when that slot itself is dead (its message still feeds tn), so
         dead-but-reachable slots exist in the subgraph with alive=False."""
+        with trace.span("fpm.lcc.compact.closure"):
+            union, u_rows_uniq, alive_sub_eids, sub = self._closure(arow, acol)
+        with trace.span("fpm.lcc.compact.call"):
+            flag_ids = None
+            if tp_mark_eids:
+                # marks on dead slots are no-ops in the full engine (own_alive
+                # gates the flag), so only union hits carry over
+                mk = self._edge_keys_cached()[np.asarray(tp_mark_eids, dtype=np.int64)]
+                mp = np.minimum(np.searchsorted(union, mk), len(union) - 1)
+                flag_ids = mp[union[mp] == mk]
+            sub_state = sub.state_from_edge_ids(tv, alive_sub_eids, flag_ids=flag_ids)
+            sub_state, rows, died = sub.lcc_call(sub_state, False, n_steps=steps_left)
+        with trace.span("fpm.lcc.compact.back"):
+            # a live vertex with no alive incident edge is outside the
+            # closure: the sub engine never sees it, but the full engine
+            # would kill it in this call's first superstep and raise the
+            # died flag
+            live_v = np.nonzero(tv)[0]
+            if len(live_v) and not np.isin(live_v, u_rows_uniq).all():
+                died = True
+            tv2 = sub.tv_host(sub_state)
+            a2r, a2c = sub.alive_pairs(sub_state)
+            return self._state_from_pairs(tv2, a2r, a2c), rows, died
+
+    def _closure(self, arow, acol):
+        """(union, u_rows_uniq, alive_sub_eids, sub) of the alive set: the
+        symmetric closure's keys, its rows, the alive set's edge ids in it
+        and the engine over it, from ``_sub_cache`` when the alive set is
+        the cached one."""
         vv = np.uint64(self.graph.num_vertices)
         keys = arow.astype(np.uint64) * vv + acol.astype(np.uint64)
         fp = (len(keys), int(keys[0]), int(keys[-1]))
         cache = self._sub_cache
         if cache is not None and cache[0] == fp and np.array_equal(keys, cache[1]):
-            _, _, union, u_rows_uniq, alive_sub_eids, sub = cache
-        else:
-            rkeys = acol.astype(np.uint64) * vv + arow.astype(np.uint64)
-            union = np.union1d(keys, rkeys)
-            u_row = (union // vv).astype(np.int64)
-            u_col = (union % vv).astype(np.int64)
-            gsub = from_edges(u_row, u_col, num_vertices=self.graph.num_vertices)
-            sub_meta = None
-            if self._meta is not None:
-                # union is in CSR key order, so from_edges keeps it: sub
-                # edge e is union[e]
-                sub_meta = (
-                    self._meta[1],
-                    self._meta[2][np.searchsorted(self._edge_keys_cached(), union)],
-                )
-            sub = BucketedLccEngine(
-                gsub, self.labels, self.pattern, device=self.device,
-                num_ranks=self.num_ranks, edge_meta=sub_meta,
-                counting=self.counting,
+            return cache[2:]
+        trace.count("compact_builds")
+        rkeys = acol.astype(np.uint64) * vv + arow.astype(np.uint64)
+        union = np.union1d(keys, rkeys)
+        u_row = (union // vv).astype(np.int64)
+        u_col = (union % vv).astype(np.int64)
+        gsub = from_edges(u_row, u_col, num_vertices=self.graph.num_vertices)
+        sub_meta = None
+        if self._meta is not None:
+            # union is in CSR key order, so from_edges keeps it: sub
+            # edge e is union[e]
+            sub_meta = (
+                self._meta[1],
+                self._meta[2][np.searchsorted(self._edge_keys_cached(), union)],
             )
-            # per-slot aliveness = membership in the original set
-            pos = np.minimum(np.searchsorted(keys, union), len(keys) - 1)
-            alive_sub_eids = np.nonzero(keys[pos] == union)[0]
-            u_rows_uniq = np.unique(u_row)
-            self._sub_cache = (fp, keys, union, u_rows_uniq, alive_sub_eids, sub)
-        flag_ids = None
-        if tp_mark_eids:
-            # marks on dead slots are no-ops in the full engine (own_alive
-            # gates the flag), so only union hits carry over
-            mk = self._edge_keys_cached()[np.asarray(tp_mark_eids, dtype=np.int64)]
-            mp = np.minimum(np.searchsorted(union, mk), len(union) - 1)
-            flag_ids = mp[union[mp] == mk]
-        sub_state = sub.state_from_edge_ids(tv, alive_sub_eids, flag_ids=flag_ids)
-        sub_state, rows, died = sub.lcc_call(sub_state, False, n_steps=steps_left)
-        # a live vertex with no alive incident edge is outside the closure:
-        # the sub engine never sees it, but the full engine would kill it in
-        # this call's first superstep and raise the died flag
-        live_v = np.nonzero(tv)[0]
-        if len(live_v) and not np.isin(live_v, u_rows_uniq).all():
-            died = True
-        tv2 = sub.tv_host(sub_state)
-        a2r, a2c = sub.alive_pairs(sub_state)
-        return self._state_from_pairs(tv2, a2r, a2c), rows, died
+        sub = BucketedLccEngine(
+            gsub, self.labels, self.pattern, device=self.device,
+            num_ranks=self.num_ranks, edge_meta=sub_meta,
+            counting=self.counting,
+        )
+        # per-slot aliveness = membership in the original set
+        pos = np.minimum(np.searchsorted(keys, union), len(keys) - 1)
+        alive_sub_eids = np.nonzero(keys[pos] == union)[0]
+        u_rows_uniq = np.unique(u_row)
+        self._sub_cache = (fp, keys, union, u_rows_uniq, alive_sub_eids, sub)
+        return self._sub_cache[2:]
 
     def _sync(self) -> None:
         """Wait for the LCC engine's devices before a clock read."""
@@ -373,35 +408,37 @@ class MatchEngine:
         """One NLCC constraint, on the device or the host engine."""
         g = self.graph
         cand = self._cands[pl]
-        # metadata mode: the code each hop's edge must carry
-        hopc = (
-            np.searchsorted(self._meta[0], self.pattern.hop_edge_values(c.indices))
-            if self._meta is not None
-            else None
-        )
-        use_dev = self._nlcc_on_device(acsr, c, tv, cand)
-        # driver-level forwarded-set clearing runs before EVERY constraint
-        forwarded.reset_for(c, self.labels, tv, g.num_vertices)
-        if use_dev:
-            fn = self._dev_nlcc.run_tds if c.is_tds else self._dev_nlcc.run_nem
-            kw = {}
-            if hasattr(self._dev_nlcc, "mesh"):
-                kw = {"hopc": hopc, "source_batch": self.source_batch}
-            return fn(
-                acsr, self.labels, tv, c, g.num_vertices,
-                forwarded=forwarded, candidates=cand, **kw,
+        with trace.span("fpm.nlcc.place"):
+            use_dev = self._nlcc_on_device(acsr, c, tv, cand)
+        with trace.span("fpm.nlcc.walk.device" if use_dev else "fpm.nlcc.walk.host"):
+            # metadata mode: the code each hop's edge must carry
+            hopc = (
+                np.searchsorted(self._meta[0], self.pattern.hop_edge_values(c.indices))
+                if self._meta is not None
+                else None
             )
-        if c.is_tds:
-            return run_tds(
+            # driver-level forwarded-set clearing runs before EVERY constraint
+            forwarded.reset_for(c, self.labels, tv, g.num_vertices)
+            if use_dev:
+                fn = self._dev_nlcc.run_tds if c.is_tds else self._dev_nlcc.run_nem
+                kw = {}
+                if hasattr(self._dev_nlcc, "mesh"):
+                    kw = {"hopc": hopc, "source_batch": self.source_batch}
+                return fn(
+                    acsr, self.labels, tv, c, g.num_vertices,
+                    forwarded=forwarded, candidates=cand, **kw,
+                )
+            if c.is_tds:
+                return run_tds(
+                    acsr, self.labels, tv, c, g.num_vertices,
+                    source_batch=self.source_batch, num_ranks=self.num_ranks,
+                    forwarded=forwarded, hopc=hopc, candidates=cand,
+                )
+            return run_nem(
                 acsr, self.labels, tv, c, g.num_vertices,
-                source_batch=self.source_batch, num_ranks=self.num_ranks,
-                forwarded=forwarded, hopc=hopc, candidates=cand,
+                num_ranks=self.num_ranks, forwarded=forwarded, hopc=hopc,
+                candidates=cand,
             )
-        return run_nem(
-            acsr, self.labels, tv, c, g.num_vertices,
-            num_ranks=self.num_ranks, forwarded=forwarded, hopc=hopc,
-            candidates=cand,
-        )
 
     def _alive_csr(self, arow, acol, alive, tv, state) -> AliveCsr:
         """The pruned adjacency the NLCC walks expand: from the alive pairs
@@ -430,17 +467,24 @@ class MatchEngine:
         """(tv, arow, acol, alive) on the host: the alive (row, col) pairs
         in CSR row-major order, and for the flat engine its E-sized alive
         flags (None for the bucketed engine)."""
-        if self._fast:
-            arow, acol = self.lcc.alive_pairs(state)
-            return self.lcc.tv_host(state).copy(), arow, acol, None
-        tv, alive = self.lcc.state_to_global(state)
-        alive = alive.copy()
-        eids = np.nonzero(alive)[0]
-        return tv.copy(), self.graph.edge_row[eids], self.graph.cols[eids], alive
+        with trace.span("fpm.state"):
+            if self._fast:
+                arow, acol = self.lcc.alive_pairs(state)
+                return self.lcc.tv_host(state).copy(), arow, acol, None
+            tv, alive = self.lcc.state_to_global(state)
+            alive = alive.copy()
+            eids = np.nonzero(alive)[0]
+            return tv.copy(), self.graph.edge_row[eids], self.graph.cols[eids], alive
 
     def run(self, max_iterations: int = 100) -> MatchResult:
         t_start = time.perf_counter()
         result = MatchResult()
+        with trace.search(result):
+            self._search(result, max_iterations)
+        result.total_seconds = time.perf_counter() - t_start
+        return result
+
+    def _search(self, result: MatchResult, max_iterations: int) -> None:
         result.pattern_found = [False] * len(self.constraints)
         g = self.graph
         fast = self._fast
@@ -470,69 +514,76 @@ class MatchEngine:
                 # arrival checks)
                 acsr = None
                 for pl, c in enumerate(self.constraints):
-                    t0 = time.perf_counter()
-                    if acsr is None:
-                        acsr = self._alive_csr(arow, acol, alive, tv, state)
-                    out = self._run_constraint(pl, c, acsr, tv, forwarded)
-                    if c.is_tds:
-                        subs = result.subgraphs.setdefault(pl, [])
-                        if out.subgraphs is not None and len(out.subgraphs):
-                            subs.extend(map(tuple, out.subgraphs.tolist()))
-                    if bool(out.validated.any()):
-                        result.pattern_found[pl] = True
-                    for v, p in out.edge_marks:
-                        e = self._edge_index(v, p)
-                        if e >= 0:
-                            if fast:
-                                tp_marks.append(e)
-                            else:
-                                tp_flag[e] = True
-                    deleted = invalidate_sources(tv, c, out)
-                    if deleted:
-                        not_finished = True
-                    live = tv != 0
-                    ae_rows = arow[live[arow]]
-                    per_rank = {
-                        "av": np.bincount(
-                            self._owner[live], minlength=self.num_ranks
-                        ),
-                        "ae": np.bincount(
-                            self._owner[ae_rows], minlength=self.num_ranks
-                        ),
-                        "msg": out.msg_per_rank
-                        if out.msg_per_rank is not None
-                        else np.zeros(self.num_ranks, dtype=np.int64),
-                    }
-                    result.rows.append(
-                        PhaseRow(
-                            itr, "TP", pl, int(live.sum()), len(ae_rows),
-                            out.messages, time.perf_counter() - t0, per_rank,
-                        )
-                    )
-                    result.traversed_edges += out.messages
-                    if deleted and c.interleave_lcc:
-                        if fast:
-                            state = self.lcc.with_updates(state, tv, tp_marks)
-                        else:
-                            state = self.lcc.state_from_global(tv, alive, tp_flag)
-                        # tp success marks are carried into the compact
-                        # subgraph's edge ids (tp_mark_eids)
-                        state, died = self._lcc_phase(
-                            state, False, itr, result,
-                            tp_mark_eids=tp_marks if fast else None,
-                        )
-                        if died:
-                            not_finished = True
-                        tv, arow, acol, alive = self._host_state(state)
-                        tp_marks = []
-                        if not fast:
-                            tp_flag = np.zeros(g.num_edges, dtype=bool)
-                        acsr = None  # pruned adjacency changed
-                if fast:
-                    state = self.lcc.with_updates(state, tv, tp_marks)
-                    pending_marks = list(tp_marks)
-                else:
-                    state = self.lcc.state_from_global(tv, alive, tp_flag)
+                    with trace.span("fpm.nlcc"):
+                        t0 = time.perf_counter()
+                        if acsr is None:
+                            with trace.span("fpm.nlcc.csr"):
+                                acsr = self._alive_csr(arow, acol, alive, tv, state)
+                        out = self._run_constraint(pl, c, acsr, tv, forwarded)
+                        with trace.span("fpm.nlcc.marks"):
+                            if c.is_tds:
+                                subs = result.subgraphs.setdefault(pl, [])
+                                if out.subgraphs is not None and len(out.subgraphs):
+                                    subs.extend(map(tuple, out.subgraphs.tolist()))
+                            if bool(out.validated.any()):
+                                result.pattern_found[pl] = True
+                            for v, p in out.edge_marks:
+                                e = self._edge_index(v, p)
+                                if e >= 0:
+                                    if fast:
+                                        tp_marks.append(e)
+                                    else:
+                                        tp_flag[e] = True
+                            deleted = invalidate_sources(tv, c, out)
+                            if deleted:
+                                not_finished = True
+                            live = tv != 0
+                            ae_rows = arow[live[arow]]
+                            per_rank = {
+                                "av": np.bincount(
+                                    self._owner[live], minlength=self.num_ranks
+                                ),
+                                "ae": np.bincount(
+                                    self._owner[ae_rows], minlength=self.num_ranks
+                                ),
+                                "msg": out.msg_per_rank
+                                if out.msg_per_rank is not None
+                                else np.zeros(self.num_ranks, dtype=np.int64),
+                            }
+                            result.rows.append(
+                                PhaseRow(
+                                    itr, "TP", pl, int(live.sum()), len(ae_rows),
+                                    out.messages, time.perf_counter() - t0, per_rank,
+                                )
+                            )
+                            result.traversed_edges += out.messages
+                        if deleted and c.interleave_lcc:
+                            # the LCC phase a constraint causes runs inside
+                            # the constraint's span
+                            with trace.span("fpm.update"):
+                                if fast:
+                                    state = self.lcc.with_updates(state, tv, tp_marks)
+                                else:
+                                    state = self.lcc.state_from_global(tv, alive, tp_flag)
+                            # tp success marks are carried into the compact
+                            # subgraph's edge ids (tp_mark_eids)
+                            state, died = self._lcc_phase(
+                                state, False, itr, result,
+                                tp_mark_eids=tp_marks if fast else None,
+                            )
+                            if died:
+                                not_finished = True
+                            tv, arow, acol, alive = self._host_state(state)
+                            tp_marks = []
+                            if not fast:
+                                tp_flag = np.zeros(g.num_edges, dtype=bool)
+                            acsr = None  # pruned adjacency changed
+                with trace.span("fpm.update"):
+                    if fast:
+                        state = self.lcc.with_updates(state, tv, tp_marks)
+                        pending_marks = list(tp_marks)
+                    else:
+                        state = self.lcc.state_from_global(tv, alive, tp_flag)
             itr += 1
             if not not_finished:
                 break
@@ -545,16 +596,15 @@ class MatchEngine:
                     "active sets are an over-approximation "
                     "(MatchResult.truncated=True)",
                     RuntimeWarning,
-                    stacklevel=2,
+                    stacklevel=3,
                 )
                 break
 
         result.iterations = itr
-        tv, arow, acol, _ = self._host_state(state)
-        keep = (tv != 0)[arow]
-        result.active_edges = {
-            (int(r), int(c)) for r, c in zip(arow[keep], acol[keep])
-        }
-        result.active_vertices = {int(v): int(tv[v]) for v in np.nonzero(tv)[0]}
-        result.total_seconds = time.perf_counter() - t_start
-        return result
+        with trace.span("fpm.result"):
+            tv, arow, acol, _ = self._host_state(state)
+            keep = (tv != 0)[arow]
+            result.active_edges = {
+                (int(r), int(c)) for r, c in zip(arow[keep], acol[keep])
+            }
+            result.active_vertices = {int(v): int(tv[v]) for v in np.nonzero(tv)[0]}

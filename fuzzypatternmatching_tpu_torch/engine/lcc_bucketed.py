@@ -66,6 +66,7 @@ from ..ops.lcc_superstep import (
     row_or,
 )
 from ..pattern.pattern_graph import PatternGraph
+from ..utils.trace import to_device, to_host
 from .lazy_state import merged_flag_ids, normalized_edge_ids, normalized_flag_ids
 
 @dataclass
@@ -238,7 +239,7 @@ class BucketedLccEngine:
             ]
             allow32 = np.asarray(allow, dtype=np.uint32).astype(np.int32)
             self.meta_allow = [
-                torch.from_numpy(allow32[:, i].copy()).to(self.device)
+                to_device(allow32[:, i].copy(), self.device)
                 for i in range(self.k)
             ]
         # --- counting: per-slot sender label classes -----------------------
@@ -256,7 +257,7 @@ class BucketedLccEngine:
         # --- device planes -------------------------------------------------
         dev = self.device
         lab_tv = pattern.label_match_bitset(np.asarray(labels)).astype(np.int32)
-        self.label_tv = torch.from_numpy(lab_tv).to(dev)
+        self.label_tv = to_device(lab_tv, dev)
         # flat planes over every bucket and the bucket table, what the fused
         # supersteps read (ops/lcc_fused.py); each bucket's planes below
         # are views of them
@@ -272,27 +273,28 @@ class BucketedLccEngine:
         self._code_tv = self._planes.code_tv
         # rev of every slot, bucket after bucket: one lookup launch covers
         # the whole slot space
-        self._rev_flat = torch.from_numpy(
+        self._rev_flat = to_device(
             np.concatenate(
                 [b.rev.reshape(-1) for b in self.buckets]
                 + [np.empty(0, dtype=np.int32)]
-            )
-        ).to(dev)
+            ),
+            dev,
+        )
         self._dev = []
         for b, views, meta, cls in zip(
             self.buckets, bucket_views(self._planes), slot_meta, slot_cls
         ):
             self._dev.append(
                 _DeviceBucket(
-                    rows=torch.from_numpy(b.rows.astype(np.int64)).to(dev),
+                    rows=to_device(b.rows.astype(np.int64), dev),
                     adj=views.adj,
                     code=views.code,
                     seg_id=views.seg_id,
                     seg_rows=views.seg_rows,
                     own_rows=views.own_rows,
                     own_seg=views.own_seg,
-                    meta=None if meta is None else torch.from_numpy(meta).to(dev),
-                    cls=None if cls is None else torch.from_numpy(cls).to(dev),
+                    meta=None if meta is None else to_device(meta, dev),
+                    cls=None if cls is None else to_device(cls, dev),
                 )
             )
 
@@ -455,9 +457,7 @@ class BucketedLccEngine:
     # ------------------------------------------------------------------
 
     def _tv_to_device(self, tv_np: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(
-            np.array(tv_np, dtype=np.uint32).view(np.int32)
-        ).to(self.device)
+        return to_device(np.array(tv_np, dtype=np.uint32).view(np.int32), self.device)
 
     def _slots_to_device(self, slots: np.ndarray) -> torch.Tensor:
         """bool [S+1] device array with the given slots set (pad slot S
@@ -465,7 +465,7 @@ class BucketedLccEngine:
         flags = np.zeros(self.num_slots + 1, dtype=bool)
         flags[slots] = True
         flags[-1] = False
-        return torch.from_numpy(flags).to(self.device)
+        return to_device(flags, self.device)
 
     def init_state(self) -> BucketedState:
         dev = self.device
@@ -504,12 +504,12 @@ class BucketedLccEngine:
             edge_alive = np.zeros(self.graph.num_edges, dtype=bool)
             edge_alive[state.lazy_edge_ids] = True
             return state.tv_np.copy(), edge_alive
-        al_flat = state.alive.cpu().numpy()
+        al_flat = to_host(state.alive)
         return self.tv_host(state).copy(), al_flat[self._edge_to_slot]
 
     def tv_host(self, state: BucketedState) -> np.ndarray:
         if state.tv_np is None:
-            state.tv_np = state.tv.cpu().numpy().view(np.uint32)
+            state.tv_np = to_host(state.tv).view(np.uint32)
         return state.tv_np
 
     def alive_pairs(self, state: BucketedState):
@@ -534,7 +534,7 @@ class BucketedLccEngine:
             sel = sel.view(-1)
             keys.append(d.rows[sel // w] * v + d.adj.view(-1)[sel])
         # keys are unique: sorting them is CSR row-major order
-        k = torch.sort(torch.cat(keys)).values.cpu().numpy()
+        k = to_host(torch.sort(torch.cat(keys)).values)
         state.pairs_cache = (k // v, k % v)
         return state.pairs_cache
 
@@ -587,7 +587,7 @@ class BucketedLccEngine:
         if tp_marks:
             idx = self._edge_to_slot[np.asarray(list(tp_marks), dtype=np.int64)]
             flag = flag.clone()
-            flag[torch.from_numpy(idx).to(self.device)] = True
+            flag[to_device(idx, self.device)] = True
         return BucketedState(
             tv=self._tv_to_device(tv32),
             alive=state.alive,
@@ -620,7 +620,7 @@ class BucketedLccEngine:
         rows = []
         any_died = False
         if stats:
-            st_np = torch.stack(stats).cpu().numpy()
+            st_np = to_host(torch.stack(stats))
             for row in st_np:
                 per = {
                     "av": row[0:rr].copy(),

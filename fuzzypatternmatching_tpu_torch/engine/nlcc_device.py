@@ -28,6 +28,7 @@ import torch
 
 from ..ops import nlcc_frontier as nf
 from ..pattern.nonlocal_constraint import NonLocalConstraint
+from ..utils.trace import to_device, to_host
 from .nlcc import (
     AliveCsr,
     ForwardedSets,
@@ -39,7 +40,7 @@ from .nlcc import (
 
 def _ids(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Vertex ids (any integer array below 2^31) as int32 on ``dev``."""
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+    return to_device(np.ascontiguousarray(a, dtype=np.int32), dev)
 
 
 class DeviceNlcc:
@@ -66,7 +67,7 @@ class DeviceNlcc:
         dev = getattr(acsr, "_dev_cache", None)
         if dev is not None and dev[0] == self.device:
             return dev[1], dev[2]
-        ptr = torch.from_numpy(np.ascontiguousarray(acsr.ptr, dtype=np.int64)).to(self.device)
+        ptr = to_device(np.ascontiguousarray(acsr.ptr, dtype=np.int64), self.device)
         col = _ids(acsr.col, self.device)
         acsr._dev_cache = (self.device, ptr, col)
         return ptr, col
@@ -77,7 +78,7 @@ class DeviceNlcc:
         """The labels as int64 on the device, uploaded once per array."""
         if self._labels is None or self._labels[0] is not labels:
             lab = np.ascontiguousarray(labels, dtype=np.uint64).view(np.int64)
-            self._labels = (labels, torch.from_numpy(lab).to(self.device))
+            self._labels = (labels, to_device(lab, self.device))
         return self._labels[1]
 
     def _ok_bits(
@@ -97,8 +98,7 @@ class DeviceNlcc:
                 f"walks of more than {nf.MAX_HOP_BIT} hops do not fit the arrival bits"
             )
         lab = self._labels_dev(labels)
-        tvd = torch.from_numpy(np.ascontiguousarray(tv, dtype=np.uint32).view(np.int32))
-        tvd = tvd.to(self.device)
+        tvd = to_device(np.ascontiguousarray(tv, dtype=np.uint32).view(np.int32), self.device)
         bits = torch.zeros(self.V, dtype=torch.int32, device=self.device)
         for h in range(0, c.cycle_length + 2):
             ok = (lab == int(c.labels[h])) & (((tvd >> int(c.indices[h])) & 1) != 0)
@@ -113,7 +113,7 @@ class DeviceNlcc:
         return int((acsr.ptr[sources + 1] - acsr.ptr[sources]).sum())
 
     def _msg_out(self, msg_r: torch.Tensor) -> tuple[int, np.ndarray]:
-        m = msg_r.cpu().numpy()
+        m = to_host(msg_r)
         return int(m.sum()), m
 
     # -- public API (mirrors engine/nlcc.py) ---------------------------------
@@ -145,7 +145,7 @@ class DeviceNlcc:
         ptr, col = self.prepare(acsr)
         ok_bits = self._ok_bits(labels, tv, c, map_keys)
         validated = torch.zeros(V, dtype=torch.bool, device=dev)
-        seen = torch.from_numpy(forwarded.keys).to(dev)  # fwd_in, then winners
+        seen = to_device(forwarded.keys, dev)  # fwd_in, then winners
         edge_marks: list = []
 
         src0 = _ids(sources, dev)
@@ -170,7 +170,9 @@ class DeviceNlcc:
                     # bit 31: the source is a token_source_map key
                     acc = (cur == src) & (ok_bits[cur.long()] < 0)
                     validated[src[acc].long()] = True
-                    edge_marks = list(zip(cur[acc].tolist(), parent[acc].tolist()))
+                    edge_marks = list(
+                        zip(to_host(cur[acc]).tolist(), to_host(parent[acc]).tolist())
+                    )
                 break
             relay = cur != src  # the target cannot relay (nem_1.hpp:173-177)
             cur, src, parent = cur[relay], src[relay], parent[relay]
@@ -186,11 +188,11 @@ class DeviceNlcc:
         if seen.shape[0] > len(forwarded.keys):
             # ForwardedSets.add's sorted union, taken on the device: the
             # earlier keys and this run's winners are all distinct
-            forwarded.keys = torch.sort(seen).values.cpu().numpy()
+            forwarded.keys = to_host(torch.sort(seen).values)
         messages, msg_r = self._msg_out(msg_r)
         return NlccOutcome(
             map_keys,
-            validated[_ids(map_keys, dev).long()].cpu().numpy(),
+            to_host(validated[_ids(map_keys, dev).long()]),
             messages,
             edge_marks,
             None,
@@ -248,7 +250,7 @@ class DeviceNlcc:
                 validated[tgt[acc].long()] = True
                 if collect_subgraphs and bool(emit.any()):
                     last = cur[emit, None]
-                    subgraphs = torch.cat([visited[emit], last, last], 1).cpu().numpy()
+                    subgraphs = to_host(torch.cat([visited[emit], last, last], 1))
                     subgraphs = subgraphs.astype(np.int64)
                 break
             # receiver-side enumeration rule (tds_batch_1.hpp:620-639)
@@ -283,7 +285,7 @@ class DeviceNlcc:
         messages, msg_r = self._msg_out(msg_r)
         return NlccOutcome(
             sources,
-            validated[_ids(sources, dev).long()].cpu().numpy(),
+            to_host(validated[_ids(sources, dev).long()]),
             messages,
             [],
             subgraphs,

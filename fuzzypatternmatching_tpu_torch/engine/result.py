@@ -38,6 +38,11 @@ class MatchResult:
     # (the reference loops unconditionally, beta.cpp:1351) — the active
     # sets are then an over-approximation, and a RuntimeWarning was issued
     truncated: bool = False
+    # kept only while a torch profiler records (utils/trace.py): the
+    # search's spans (utils.trace.Span, the root fpm.search first) and
+    # counters (utils.trace.COUNTERS)
+    spans: list = field(default_factory=list)
+    counters: dict = field(default_factory=dict)
 
     def lp_trace(self) -> list[tuple[int, int, int]]:
         return [

@@ -1,0 +1,167 @@
+"""Spans and counters of one search, recorded only while a torch profiler
+records.
+
+``MatchEngine.run`` opens its root span, ``fpm.search``, with
+``search(result)``; the driver opens a span at each layer boundary below it
+with ``span(name)`` and counts with ``count(key)``; the engines' explicit
+host<->device copies go through ``to_device`` and ``to_host``, which count
+their bytes. The search's ``MatchResult`` is what its spans share: they
+are kept on it, in memory, as ``spans`` (``Span``: the name, the parent's
+index, start and end on ``time.perf_counter_ns()``) and ``counters``
+(``COUNTERS``).
+
+While no profiler records, ``search`` and ``span`` return one shared no-op
+context manager, a counter or copy site costs one test, nothing is kept and
+``torch.profiler.record_function`` is never called. While one records,
+each span also opens a ``record_function`` range of its name, so the
+profiler's trace shows it beside the kernels on the profiler's own clock.
+A reader places a search's spans on that clock by one offset: the start of
+a range the caller opened around ``run()`` less the start of
+``fpm.search``.
+"""
+
+from __future__ import annotations
+
+import time
+from contextvars import ContextVar
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+# the search's counters: bytes of the explicit copies each way (counted
+# whatever the device, so a CPU run counts what a card's would copy) and
+# compact-closure builds (misses of MatchEngine._sub_cache)
+COUNTERS = ("h2d_bytes", "d2h_bytes", "compact_builds")
+
+
+@dataclass
+class Span:
+    name: str
+    parent: int  # index of the enclosing span in the search's list; -1: none
+    start_ns: int  # time.perf_counter_ns()
+    end_ns: int = 0
+
+
+def profiling() -> bool:
+    """True while a torch profiler records (a flag read)."""
+    return torch._C._autograd._profiler_enabled()
+
+
+class _Off:
+    """The span that records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Recorder:
+    """Where one search's spans and counters go, and its open spans."""
+
+    __slots__ = ("spans", "counters", "open")
+
+    def __init__(self, spans: list, counters: dict):
+        self.spans = spans
+        self.counters = counters
+        self.open: list[int] = []  # indices of the open spans, innermost last
+
+
+# the recorder of the search that this context runs, None while no
+# profiler records
+_current: ContextVar[_Recorder | None] = ContextVar("fpm_trace", default=None)
+
+
+class _Span:
+    """One span. Its clock is read after the range's entry and after its
+    exit, where the profiler's own stamps of the range fall nearest."""
+
+    __slots__ = ("rec", "name", "index", "range")
+
+    def __init__(self, rec: _Recorder, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        rec = self.rec
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        self.index = len(rec.spans)
+        parent = rec.open[-1] if rec.open else -1
+        rec.spans.append(Span(self.name, parent, time.perf_counter_ns()))
+        rec.open.append(self.index)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec.open.pop()
+        self.range.__exit__(*exc)
+        rec.spans[self.index].end_ns = time.perf_counter_ns()
+        return False
+
+
+class _Search:
+    """The root span: sets this context's recorder for the search."""
+
+    __slots__ = ("rec", "root", "token")
+
+    def __init__(self, result):
+        result.counters.update(dict.fromkeys(COUNTERS, 0))
+        self.rec = _Recorder(result.spans, result.counters)
+        self.root = _Span(self.rec, "fpm.search")
+
+    def __enter__(self):
+        self.token = _current.set(self.rec)
+        self.root.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.root.__exit__(*exc)
+        finally:
+            _current.reset(self.token)
+        return False
+
+
+def search(result):
+    """The root span of one search, kept on ``result`` (a ``MatchResult``)."""
+    if not profiling():
+        return _OFF
+    return _Search(result)
+
+
+def span(name: str):
+    """A span of ``name`` inside the open ones."""
+    rec = _current.get()
+    if rec is None or not profiling():
+        return _OFF
+    return _Span(rec, name)
+
+
+def count(key: str) -> None:
+    """One more of the counter ``key``."""
+    rec = _current.get()
+    if rec is not None:
+        rec.counters[key] += 1
+
+
+def to_device(array: np.ndarray, device) -> torch.Tensor:
+    """``torch.from_numpy(array).to(device)``, its bytes counted."""
+    rec = _current.get()
+    if rec is not None:
+        rec.counters["h2d_bytes"] += array.nbytes
+    return torch.from_numpy(array).to(device)
+
+
+def to_host(tensor: torch.Tensor) -> np.ndarray:
+    """``tensor.cpu().numpy()``, its bytes counted."""
+    rec = _current.get()
+    if rec is not None:
+        rec.counters["d2h_bytes"] += tensor.numel() * tensor.element_size()
+    return tensor.cpu().numpy()
