@@ -200,7 +200,6 @@ class MatchEngine:
         # closure and its engine, keyed on the exact alive set
         self._sub_cache: tuple | None = None
         self._edge_keys: np.ndarray | None = None
-        self._owner = np.arange(graph.num_vertices, dtype=np.int64) % num_ranks
         # per-constraint token-source label candidates (labels never change)
         self._cands = [
             np.nonzero(self.labels == c.labels[0])[0].astype(np.int64)
@@ -388,7 +387,7 @@ class MatchEngine:
 
     def _nlcc_on_device(
         self, acsr: AliveCsr, c: NonLocalConstraint, tv: np.ndarray,
-        candidates: np.ndarray | None = None,
+        candidates: np.ndarray | None = None, *, active: np.ndarray | None = None,
     ) -> bool:
         """Place one constraint run: "auto" moves it to the device when the
         first token expansion is big enough to pay for the device run's
@@ -400,16 +399,17 @@ class MatchEngine:
             return False
         if self.nlcc_mode == "device":
             return True
-        sources = token_sources(c, self.labels, tv, candidates)
+        sources = token_sources(c, self.labels, tv, candidates, active=active)
         work = self._dev_nlcc._first_expansion(acsr, sources)
         return work >= self.nlcc_device_min
 
-    def _run_constraint(self, pl, c, acsr, tv, forwarded):
-        """One NLCC constraint, on the device or the host engine."""
+    def _run_constraint(self, pl, c, acsr, tv, forwarded, act):
+        """One NLCC constraint, on the device or the host engine; ``act``
+        (ascending) holds every vertex with tv != 0."""
         g = self.graph
         cand = self._cands[pl]
         with trace.span("fpm.nlcc.place"):
-            use_dev = self._nlcc_on_device(acsr, c, tv, cand)
+            use_dev = self._nlcc_on_device(acsr, c, tv, cand, active=act)
         with trace.span("fpm.nlcc.walk.device" if use_dev else "fpm.nlcc.walk.host"):
             # metadata mode: the code each hop's edge must carry
             hopc = (
@@ -426,24 +426,25 @@ class MatchEngine:
                     kw = {"hopc": hopc, "source_batch": self.source_batch}
                 return fn(
                     acsr, self.labels, tv, c, g.num_vertices,
-                    forwarded=forwarded, candidates=cand, **kw,
+                    forwarded=forwarded, candidates=cand, active=act, **kw,
                 )
             if c.is_tds:
                 return run_tds(
                     acsr, self.labels, tv, c, g.num_vertices,
                     source_batch=self.source_batch, num_ranks=self.num_ranks,
-                    forwarded=forwarded, hopc=hopc, candidates=cand,
+                    forwarded=forwarded, hopc=hopc, candidates=cand, active=act,
                 )
             return run_nem(
                 acsr, self.labels, tv, c, g.num_vertices,
                 num_ranks=self.num_ranks, forwarded=forwarded, hopc=hopc,
-                candidates=cand,
+                candidates=cand, active=act,
             )
 
     def _alive_csr(self, arow, acol, alive, tv, state) -> AliveCsr:
         """The pruned adjacency the NLCC walks expand: from the alive pairs
         (bucketed engine) or the E-sized alive flags (flat engine), with
-        each edge's metadata code in metadata mode."""
+        each edge's metadata code in metadata mode. From the pairs it
+        touches only their rows (``AliveCsr.from_pairs``)."""
         g = self.graph
         if alive is not None:
             return AliveCsr.build(
@@ -461,7 +462,7 @@ class MatchEngine:
                     np.uint64
                 )
                 pair_meta = self._meta[2][np.searchsorted(self._edge_keys_cached(), keys)]
-        return AliveCsr.from_pairs(arow, acol, tv != 0, g.num_vertices, meta=pair_meta)
+        return AliveCsr.from_pairs(arow, acol, tv, g.num_vertices, meta=pair_meta)
 
     def _host_state(self, state):
         """(tv, arow, acol, alive) on the host: the alive (row, col) pairs
@@ -511,15 +512,20 @@ class MatchEngine:
                 tp_flag = None if fast else np.zeros(g.num_edges, dtype=bool)
                 # the pruned adjacency changes only via LCC; reuse it across
                 # constraints (deactivated vertices are filtered by the
-                # arrival checks)
-                acsr = None
+                # arrival checks), and with it the active vertices: tv
+                # only loses bits until the next host state, so ``act``
+                # holds every vertex with tv != 0 until then
+                acsr = act = None
                 for pl, c in enumerate(self.constraints):
                     with trace.span("fpm.nlcc"):
                         t0 = time.perf_counter()
                         if acsr is None:
                             with trace.span("fpm.nlcc.csr"):
+                                # numpy's nonzero on a bool mask is several
+                                # times faster than on the uint32 words
+                                act = np.flatnonzero(tv != 0)
                                 acsr = self._alive_csr(arow, acol, alive, tv, state)
-                        out = self._run_constraint(pl, c, acsr, tv, forwarded)
+                        out = self._run_constraint(pl, c, acsr, tv, forwarded, act)
                         with trace.span("fpm.nlcc.marks"):
                             if c.is_tds:
                                 subs = result.subgraphs.setdefault(pl, [])
@@ -537,14 +543,14 @@ class MatchEngine:
                             deleted = invalidate_sources(tv, c, out)
                             if deleted:
                                 not_finished = True
-                            live = tv != 0
-                            ae_rows = arow[live[arow]]
+                            live = act[tv[act] != 0]
+                            ae_rows = arow[tv[arow] != 0]
                             per_rank = {
                                 "av": np.bincount(
-                                    self._owner[live], minlength=self.num_ranks
+                                    live % self.num_ranks, minlength=self.num_ranks
                                 ),
                                 "ae": np.bincount(
-                                    self._owner[ae_rows], minlength=self.num_ranks
+                                    ae_rows % self.num_ranks, minlength=self.num_ranks
                                 ),
                                 "msg": out.msg_per_rank
                                 if out.msg_per_rank is not None
@@ -552,7 +558,7 @@ class MatchEngine:
                             }
                             result.rows.append(
                                 PhaseRow(
-                                    itr, "TP", pl, int(live.sum()), len(ae_rows),
+                                    itr, "TP", pl, len(live), len(ae_rows),
                                     out.messages, time.perf_counter() - t0, per_rank,
                                 )
                             )
@@ -577,7 +583,7 @@ class MatchEngine:
                             tp_marks = []
                             if not fast:
                                 tp_flag = np.zeros(g.num_edges, dtype=bool)
-                            acsr = None  # pruned adjacency changed
+                            acsr = act = None  # pruned adjacency changed
                 with trace.span("fpm.update"):
                     if fast:
                         state = self.lcc.with_updates(state, tv, tp_marks)

@@ -28,33 +28,50 @@ import numpy as np
 
 from ..graph.csr import Graph
 from ..pattern.nonlocal_constraint import NonLocalConstraint
+from ..utils import trace
 
 
-@dataclass
 class AliveCsr:
     """Pruned adjacency: only edges whose receiver-side slot is alive and
     whose row vertex is still active. ``meta`` (optional, aligned with
     ``col``) carries per-edge metadata codes for the edge-metadata-
-    constrained matching mode."""
+    constrained matching mode.
 
-    ptr: np.ndarray  # int64 [V+1]
-    col: np.ndarray  # int64 [A]
-    meta: np.ndarray | None = None  # int64 [A] metadata codes | None
+    ``from_pairs`` indexes only the rows that hold edges: ``rows`` (sorted
+    distinct row ids) and ``row_ptr`` (their offsets into ``col``), built
+    in O(alive pairs). The dense ``ptr`` (int64 [V + 1]) is built from
+    them the first time it is read (the device engines upload it) and
+    counted by the ``nlcc_dense_ptr_builds`` trace counter; the host walks
+    never read it. ``AliveCsr(ptr=, col=)`` and ``build`` give the dense
+    pointer itself."""
+
+    def __init__(
+        self, ptr: np.ndarray | None = None, col: np.ndarray | None = None,
+        meta: np.ndarray | None = None, *, rows: np.ndarray | None = None,
+        row_ptr: np.ndarray | None = None, num_vertices: int | None = None,
+    ):
+        self._ptr = ptr  # int64 [V+1], or None until read
+        self.col = col  # int64 [A]
+        self.meta = meta  # int64 [A] metadata codes | None
+        self.rows = rows  # int64 [R] ascending rows with edges | None
+        self.row_ptr = row_ptr  # int64 [R+1] offsets of ``rows`` in col
+        self.num_vertices = len(ptr) - 1 if ptr is not None else num_vertices
 
     @classmethod
     def from_pairs(
         cls, arow: np.ndarray, acol: np.ndarray, live: np.ndarray,
         num_vertices: int, meta: np.ndarray | None = None,
     ) -> "AliveCsr":
-        """Build from (row, col) alive-slot pairs (already row-sorted)."""
-        mask = live[arow]
-        r, c = arow[mask], acol[mask]
-        counts = np.bincount(r, minlength=num_vertices)
-        ptr = np.zeros(num_vertices + 1, dtype=np.int64)
-        np.cumsum(counts, out=ptr[1:])
+        """Build from (row, col) alive-slot pairs (already row-sorted);
+        ``live`` is per vertex, nonzero where the row is live (a bool mask
+        or tv itself)."""
+        mask = live[arow] != 0
+        r, c = arow[mask].astype(np.int64), acol[mask]
+        first = np.flatnonzero(np.diff(r, prepend=-1))
         return cls(
-            ptr=ptr, col=c.astype(np.int64),
-            meta=None if meta is None else meta[mask],
+            col=c.astype(np.int64), meta=None if meta is None else meta[mask],
+            rows=r[first], row_ptr=np.append(first, len(r)),
+            num_vertices=num_vertices,
         )
 
     @classmethod
@@ -62,6 +79,9 @@ class AliveCsr:
         cls, graph: Graph, edge_alive: np.ndarray, live: np.ndarray,
         meta: np.ndarray | None = None,
     ) -> "AliveCsr":
+        """Build from E-sized alive flags (the flat engine), with the
+        dense pointer."""
+        trace.count("nlcc_dense_ptr_builds")
         mask = edge_alive & live[graph.edge_row]
         arow = graph.edge_row[mask]
         acol = graph.cols[mask]
@@ -72,6 +92,32 @@ class AliveCsr:
             ptr=ptr, col=acol.astype(np.int64),
             meta=None if meta is None else meta[mask],
         )
+
+    @property
+    def ptr(self) -> np.ndarray:
+        """Row offsets of every vertex, int64 [V + 1]."""
+        if self._ptr is None:
+            trace.count("nlcc_dense_ptr_builds")
+            counts = np.zeros(self.num_vertices + 1, dtype=np.int64)
+            counts[self.rows + 1] = np.diff(self.row_ptr)
+            self._ptr = np.cumsum(counts)
+        return self._ptr
+
+    def _extents(self, vs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(first edge position, degree) of each vs[i]."""
+        if self.rows is None:
+            start = self._ptr[vs]
+            return start, self._ptr[vs + 1] - start
+        if len(self.rows) == 0:
+            none = np.zeros(len(vs), dtype=np.int64)
+            return none, none
+        i = np.minimum(np.searchsorted(self.rows, vs), len(self.rows) - 1)
+        start = self.row_ptr[i]
+        return start, np.where(self.rows[i] == vs, self.row_ptr[i + 1] - start, 0)
+
+    def degrees(self, vs: np.ndarray) -> np.ndarray:
+        """Alive degree of each vs[i] (``ptr[vs + 1] - ptr[vs]``)."""
+        return self._extents(vs)[1]
 
     # accumulated (post-filter) frontiers beyond this size abort with
     # guidance rather than exhausting host memory; RAW expansion is never
@@ -86,11 +132,11 @@ class AliveCsr:
         """All alive neighbors of each vs[i]: returns (token_index, neighbor,
         edge_position) with one row per (i, nbr) pair; edge_position indexes
         ``col``/``meta``."""
-        cnt = self.ptr[vs + 1] - self.ptr[vs]
+        start, cnt = self._extents(vs)
         total = int(cnt.sum())
         rep = np.repeat(np.arange(len(vs), dtype=np.int64), cnt)
         offs = np.arange(total, dtype=np.int64) - np.repeat(np.cumsum(cnt) - cnt, cnt)
-        pos = self.ptr[vs][rep] + offs
+        pos = start[rep] + offs
         return rep, self.col[pos], pos
 
     def expand_slices(self, vs: np.ndarray, chunk: int | None = None):
@@ -99,8 +145,7 @@ class AliveCsr:
         it; a row is never split)."""
         if chunk is None:
             chunk = self.EXPAND_CHUNK
-        cnt = self.ptr[vs + 1] - self.ptr[vs]
-        cum = np.cumsum(cnt)
+        cum = np.cumsum(self.degrees(vs))
         lo = 0
         while lo < len(vs):
             base = cum[lo - 1] if lo else 0
@@ -163,13 +208,27 @@ def token_sources(
     labels: np.ndarray,
     tv: np.ndarray,
     candidates: np.ndarray | None = None,
+    *,
+    active: np.ndarray | None = None,
 ) -> np.ndarray:
     """Qualifying token sources (nem_1.hpp:387-479; tds_batch_1.hpp:1067-1135).
 
     Path-check (non-TDS) sources must hold both endpoint template bits.
     ``candidates`` (sorted ids with labels == c.labels[0], precomputed
     once per constraint — labels never change) skips the V-sized label
-    scan this otherwise repeats on every call."""
+    scan this otherwise repeats on every call. ``active`` (sorted ids that
+    include every vertex with tv != 0; tv only loses bits while it is
+    held) narrows the scan to those vertices; with ``candidates`` too, the
+    sources are those of both."""
+    if active is not None:
+        tva = tv[active]
+        m = (labels[active] == c.labels[0]) & ((tva >> int(c.indices[0])) & 1).astype(bool)
+        if not c.is_tds and not c.valid_cycle and not c.selected_vertices:
+            m &= ((tva >> int(c.indices[-1])) & 1).astype(bool)
+        src = active[m].astype(np.int64)
+        if candidates is not None:
+            src = src[_in_sorted_np(candidates, src)]
+        return src
     if candidates is not None:
         tvc = tv[candidates]
         m = ((tvc >> int(c.indices[0])) & 1).astype(bool)
@@ -180,6 +239,18 @@ def token_sources(
     if not c.is_tds and not c.valid_cycle and not c.selected_vertices:
         mask &= ((tv >> int(c.indices[-1])) & 1).astype(bool)
     return np.nonzero(mask)[0].astype(np.int64)
+
+
+def map_keys_of(
+    c: NonLocalConstraint, labels: np.ndarray, tv: np.ndarray,
+    active: np.ndarray | None = None,
+) -> np.ndarray:
+    """The selected-vertices token_source_map keys: active vertices with
+    the constraint's final label (nem_1.hpp:414-432, 694-716); over
+    ``active`` (as in ``token_sources``) when given."""
+    if active is None:
+        return np.nonzero((tv != 0) & (labels == c.labels[-1]))[0].astype(np.int64)
+    return active[(tv[active] != 0) & (labels[active] == c.labels[-1])].astype(np.int64)
 
 
 def _in_sorted_np(sorted_arr: np.ndarray, q: np.ndarray) -> np.ndarray:
@@ -258,21 +329,23 @@ def run_nem(
     forwarded: ForwardedSets | None = None,
     hopc: np.ndarray | None = None,
     candidates: np.ndarray | None = None,
+    *,
+    active: np.ndarray | None = None,
 ) -> NlccOutcome:
     """nem-style walk constraint: one pass of
     token_passing_pattern_matching (nem_1.hpp:913-939). ``forwarded`` is the
     persistent per-(vertex, source) dedup/aggregation set; pass the same
     object across constraints after calling ``reset_for``. ``hopc``
-    (metadata mode) gives the per-hop required edge-metadata code."""
+    (metadata mode) gives the per-hop required edge-metadata code;
+    ``candidates`` and ``active`` bound the source scan
+    (``token_sources``)."""
     if forwarded is None:
         forwarded = ForwardedSets.empty()
-    sources = token_sources(c, labels, tv, candidates)
+    sources = token_sources(c, labels, tv, candidates, active=active)
     if c.selected_vertices:
         # destinations (active final-label vertices) are the validated
-        # entities in aggregation mode (nem_1.hpp:414-432, 694-716)
-        map_keys = np.nonzero((tv != 0) & (labels == c.labels[-1]))[0].astype(
-            np.int64
-        )
+        # entities in aggregation mode
+        map_keys = map_keys_of(c, labels, tv, active)
     else:
         map_keys = sources
     validated = np.zeros(len(map_keys), dtype=bool)
@@ -371,11 +444,14 @@ def run_tds(
     forwarded: ForwardedSets | None = None,
     hopc: np.ndarray | None = None,
     candidates: np.ndarray | None = None,
+    *,
+    active: np.ndarray | None = None,
 ) -> NlccOutcome:
     """TDS enumeration walk with full history
     (tds_batch_1.hpp:560-930, 1149-1303). ``hopc`` (metadata mode) gives
-    the per-hop required edge-metadata code."""
-    sources = token_sources(c, labels, tv, candidates)
+    the per-hop required edge-metadata code; ``candidates`` and ``active``
+    bound the source scan (``token_sources``)."""
+    sources = token_sources(c, labels, tv, candidates, active=active)
     validated = np.zeros(len(sources), dtype=bool)
     src_pos = {int(s): i for i, s in enumerate(sources)}
     starts, targets = tds_start_pairs(c, sources, forwarded, num_vertices)

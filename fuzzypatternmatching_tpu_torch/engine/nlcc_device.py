@@ -33,6 +33,7 @@ from .nlcc import (
     AliveCsr,
     ForwardedSets,
     NlccOutcome,
+    map_keys_of,
     tds_start_pairs,
     token_sources,
 )
@@ -110,7 +111,7 @@ class DeviceNlcc:
     def _first_expansion(self, acsr: AliveCsr, sources: np.ndarray) -> int:
         if len(sources) == 0:
             return 0
-        return int((acsr.ptr[sources + 1] - acsr.ptr[sources]).sum())
+        return int(acsr.degrees(sources).sum())
 
     def _msg_out(self, msg_r: torch.Tensor) -> tuple[int, np.ndarray]:
         m = to_host(msg_r)
@@ -128,6 +129,8 @@ class DeviceNlcc:
         forwarded: ForwardedSets | None = None,
         hopc: np.ndarray | None = None,
         candidates: np.ndarray | None = None,
+        *,
+        active: np.ndarray | None = None,
     ) -> NlccOutcome:
         assert num_vertices == self.V
         if hopc is not None:
@@ -136,9 +139,9 @@ class DeviceNlcc:
             )
         if forwarded is None:
             forwarded = ForwardedSets.empty()
-        sources = token_sources(c, labels, tv, candidates)
+        sources = token_sources(c, labels, tv, candidates, active=active)
         if c.selected_vertices:
-            map_keys = np.nonzero((tv != 0) & (labels == c.labels[-1]))[0].astype(np.int64)
+            map_keys = map_keys_of(c, labels, tv, active)
         else:
             map_keys = sources
         dev, V, R, maxi = self.device, self.V, self.R, c.cycle_length
@@ -210,13 +213,15 @@ class DeviceNlcc:
         forwarded: ForwardedSets | None = None,
         hopc: np.ndarray | None = None,
         candidates: np.ndarray | None = None,
+        *,
+        active: np.ndarray | None = None,
     ) -> NlccOutcome:
         assert num_vertices == self.V
         if hopc is not None:
             raise NotImplementedError(
                 "metadata hop filters run in the host or mesh NLCC engines"
             )
-        sources = token_sources(c, labels, tv, candidates)
+        sources = token_sources(c, labels, tv, candidates, active=active)
         starts, targets = tds_start_pairs(c, sources, forwarded, self.V)
         dev, V, R, maxi = self.device, self.V, self.R, c.cycle_length
         W = maxi + 1  # walk history columns 0..maxi

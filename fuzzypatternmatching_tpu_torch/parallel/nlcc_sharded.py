@@ -44,6 +44,7 @@ from ..engine.nlcc import (
     AliveCsr,
     ForwardedSets,
     NlccOutcome,
+    map_keys_of,
     tds_start_pairs,
     token_sources,
 )
@@ -155,7 +156,7 @@ class ShardedNlcc:
         placement weighs)."""
         if len(sources) == 0:
             return 0
-        deg = acsr.ptr[sources + 1] - acsr.ptr[sources]
+        deg = acsr.degrees(sources)
         per_dev = np.bincount(sources // self.block, weights=deg, minlength=self.n)
         return int(per_dev.max())
 
@@ -220,13 +221,15 @@ class ShardedNlcc:
         hopc: np.ndarray | None = None,
         candidates: np.ndarray | None = None,
         source_batch: int | None = None,
+        *,
+        active: np.ndarray | None = None,
     ) -> NlccOutcome:
         assert num_vertices == self.V
         if forwarded is None:
             forwarded = ForwardedSets.empty()
-        sources = token_sources(c, labels, tv, candidates)
+        sources = token_sources(c, labels, tv, candidates, active=active)
         if c.selected_vertices:
-            map_keys = np.nonzero((tv != 0) & (labels == c.labels[-1]))[0].astype(np.int64)
+            map_keys = map_keys_of(c, labels, tv, active)
         else:
             map_keys = sources
         shards = self.prepare(acsr)
@@ -343,9 +346,11 @@ class ShardedNlcc:
         hopc: np.ndarray | None = None,
         candidates: np.ndarray | None = None,
         source_batch: int | None = None,
+        *,
+        active: np.ndarray | None = None,
     ) -> NlccOutcome:
         assert num_vertices == self.V
-        sources = token_sources(c, labels, tv, candidates)
+        sources = token_sources(c, labels, tv, candidates, active=active)
         starts, targets = tds_start_pairs(c, sources, forwarded, self.V)
         order = np.argsort(starts, kind="stable")
         starts, targets = starts[order], targets[order]

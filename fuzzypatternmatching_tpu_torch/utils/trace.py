@@ -30,9 +30,10 @@ import numpy as np
 import torch
 
 # the search's counters: bytes of the explicit copies each way (counted
-# whatever the device, so a CPU run counts what a card's would copy) and
-# compact-closure builds (misses of MatchEngine._sub_cache)
-COUNTERS = ("h2d_bytes", "d2h_bytes", "compact_builds")
+# whatever the device, so a CPU run counts what a card's would copy),
+# compact-closure builds (misses of MatchEngine._sub_cache) and dense
+# V + 1 row pointers of the NLCC's AliveCsr built (engine/nlcc.py)
+COUNTERS = ("h2d_bytes", "d2h_bytes", "compact_builds", "nlcc_dense_ptr_builds")
 
 
 @dataclass

@@ -14,8 +14,9 @@ and its kernels (ops/nlcc_frontier.py) on the CPU.
   its summary (V not a multiple of 32; bits 0, 30 and 31), the plane and
   summary layouts and the route chosen from V and the lane count, the
   winners' partition count, table size and route;
-* the torch MatchEngine in each NLCC placement against the JAX
-  MatchEngine on the golden configurations.
+* the torch MatchEngine in each NLCC placement, at 1 and 4 output ranks,
+  against the JAX MatchEngine on the golden configurations, two
+  selected-vertices corpora and the tree corpus with edge metadata.
 
 The kernels themselves are held against the twins by the tests marked
 ``cuda`` in tests/test_torch_ops.py, which skip where there is no card.
@@ -25,6 +26,7 @@ Every value compared is an integer or a flag: exact equality.
 import json
 import os
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -33,24 +35,36 @@ import torch
 from fuzzypatternmatching_tpu.engine import nlcc as jax_nlcc
 from fuzzypatternmatching_tpu.engine.driver import MatchEngine as JaxMatchEngine
 from fuzzypatternmatching_tpu.engine.nlcc_device import DeviceNlcc as JaxDeviceNlcc
+from fuzzypatternmatching_tpu.graph.csr import degree_labels
 from fuzzypatternmatching_tpu.graph.csr import from_edges
+from fuzzypatternmatching_tpu.pattern import builtin as jax_builtin
 from fuzzypatternmatching_tpu_torch import golden
 from fuzzypatternmatching_tpu_torch.engine import nlcc
 from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
 from fuzzypatternmatching_tpu_torch.engine.nlcc_device import DeviceNlcc
 from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+from fuzzypatternmatching_tpu_torch.pattern import builtin
 from fuzzypatternmatching_tpu_torch.pattern.nonlocal_constraint import (
     NonLocalConstraint,
 )
 
 from test_engine_vs_oracle import (
     _random_graph,
+    _uni_pattern,
     selected_constraint,
     tds_selected_constraint,
     uniform_path_nem,
 )
 from test_nlcc_device import _assert_outcome_equal, _full_acsr, _tv_for
-from test_oracle import cycle_constraint, path_constraint, tds_constraint, undirected
+from test_oracle import (
+    PATH_PATTERN,
+    cycle_constraint,
+    path_constraint,
+    tds_constraint,
+    undirected,
+)
+from test_torch_counting import port_graph, port_pattern
+from test_torch_lcc_bucketed import _rmat_edges
 from test_torch_ops import (
     EXPAND_CASES,
     WINNER_CASES,
@@ -425,17 +439,52 @@ def golden_meta():
         return json.load(f)
 
 
+def _search_case(golden_meta, name):
+    """(JAX engine's arguments, port engine's arguments, keywords) of one
+    search: a golden configuration, a selected-vertices corpus on a
+    random graph (``selected_path``: a path then the aggregation
+    constraint; ``selected_tds``: a uniform path then a selected TDS walk),
+    or ``meta_tree_s11``, the tree corpus with its pattern edge data over
+    R-MAT s11 with symmetric random metadata (55, or 56 on one edge in
+    ten, a value no pattern edge takes)."""
+    if name in golden_meta["configs"]:
+        cfg = golden_meta["configs"][name]
+        prefix = os.path.join(REPO, cfg["corpus"])
+        return jax_build_config(cfg["scale"], prefix), golden.build_config(cfg["scale"], prefix), {}
+    if name == "meta_tree_s11":
+        gj = from_edges(*_rmat_edges(11), num_vertices=1 << 11)
+        with tempfile.TemporaryDirectory() as tmp:
+            pj, cjs = jax_builtin.load_tree_pattern(tmp + "/jax")
+            pt, cs = builtin.load_tree_pattern(tmp + "/port")
+        rng = np.random.RandomState(11)
+        vals = rng.choice([55, 56], p=[0.9, 0.1], size=gj.num_edges)
+        ed = np.where(gj.edge_row < gj.cols, vals, vals[np.maximum(gj.rev_edge, 0)])
+        labels = degree_labels(gj)
+        return (gj, labels, pj, cjs), (port_graph(gj), labels, pt, cs), {"edge_data": ed}
+    rng = np.random.RandomState(5)
+    if name == "selected_path":
+        gj = _random_graph(5, v=160, e=480)
+        labels = rng.randint(1, 3, size=160).astype(np.uint64)
+        pj, cjs = PATH_PATTERN, [path_constraint(), selected_constraint()]
+    else:
+        gj = _random_graph(6, v=96, e=200)
+        labels = np.ones(96, dtype=np.uint64)
+        pj, cjs = _uni_pattern(), [uniform_path_nem(), tds_selected_constraint()]
+    port = (port_graph(gj), labels, port_pattern(pj), [_port_constraint(c) for c in cjs])
+    return (gj, labels, pj, cjs), port, {}
+
+
 @pytest.fixture(scope="module")
 def jax_results(golden_meta):
-    """The JAX MatchEngine's result per golden configuration, computed once."""
+    """The JAX MatchEngine's result per search case and rank count,
+    computed once."""
     cache = {}
 
-    def get(name):
-        if name not in cache:
-            cfg = golden_meta["configs"][name]
-            gj, lab, pj, cjs = jax_build_config(cfg["scale"], os.path.join(REPO, cfg["corpus"]))
-            cache[name] = JaxMatchEngine(gj, lab, pj, cjs, num_ranks=golden_meta["num_ranks"]).run()
-        return cache[name]
+    def get(name, ranks):
+        if (name, ranks) not in cache:
+            jx, _, kw = _search_case(golden_meta, name)
+            cache[name, ranks] = JaxMatchEngine(*jx, num_ranks=ranks, **kw).run()
+        return cache[name, ranks]
 
     return get
 
@@ -448,21 +497,26 @@ def _rows(result):
     ]
 
 
+@pytest.mark.parametrize("ranks", [1, 4])
 @pytest.mark.parametrize("mode", ["device", "host", "auto"])
-@pytest.mark.parametrize("config", ["tree_s11", "tree_s13", "cycle_s13"])
-def test_driver_modes_match_jax(golden_meta, jax_results, config, mode):
-    cfg = golden_meta["configs"][config]
-    g, labels, pattern, constraints = golden.build_config(
-        cfg["scale"], os.path.join(REPO, cfg["corpus"])
-    )
+@pytest.mark.parametrize(
+    "config",
+    ["tree_s11", "tree_s13", "cycle_s13", "selected_path", "selected_tds", "meta_tree_s11"],
+)
+def test_driver_modes_match_jax(golden_meta, jax_results, config, mode, ranks):
+    _, port, kw = _search_case(golden_meta, config)
     eng = MatchEngine(
-        g, labels, pattern, constraints, num_ranks=golden_meta["num_ranks"],
-        nlcc_mode=mode, nlcc_device_min=1 << 10, device="cpu",
+        *port, num_ranks=ranks, nlcc_mode=mode, nlcc_device_min=1 << 10,
+        device="cpu", **kw,
     )
     assert (eng._dev_nlcc is None) == (mode == "host")
-    rt, rj = eng.run(), jax_results(config)
+    assert (eng._meta is not None) == ("edge_data" in kw)
+    rt, rj = eng.run(), jax_results(config, ranks)
     assert _rows(rt) == _rows(rj)
-    assert rt.iterations == rj.iterations == cfg["iterations"]
+    assert any(r.phase == "TP" for r in rt.rows)
+    if config in golden_meta["configs"]:
+        assert rt.iterations == golden_meta["configs"][config]["iterations"]
+    assert rt.iterations == rj.iterations
     assert rt.traversed_edges == rj.traversed_edges
     assert rt.pattern_found == rj.pattern_found
     assert rt.active_vertices == rj.active_vertices

@@ -5,7 +5,9 @@
 * On, under ``torch.profiler.profile``: one ``fpm.search`` root, every span
   inside its parent, only the names the driver documents; the compact
   closure built by the first search on an engine and not by the second;
-  the walk span named by the constraint's placement; the copy counters
+  the walk span named by the constraint's placement; the NLCC's dense
+  row pointer built once per AliveCsr on the device route and never on
+  the host route; the copy counters
   equal to the bytes a search on a full-plane engine with the host NLCC
   must move (per LCC superstep a stats row of 3R + 1 int64, the alive
   pairs' int64 keys and tv once down, tv once up).
@@ -177,6 +179,20 @@ def test_walk_named_by_placement(cycle13, mode):
     assert walks == {f"fpm.nlcc.walk.{mode}"}
     places = sum(s.name == "fpm.nlcc.place" for s in r.spans)
     assert places == sum(s.name == f"fpm.nlcc.walk.{mode}" for s in r.spans) > 0
+
+
+@pytest.mark.parametrize("mode", ["host", "device"])
+@pytest.mark.parametrize("corpus", ["tree", "cycle"])
+def test_dense_ptr_built_only_for_the_device(tree13, cycle13, corpus, mode):
+    """The host walks index the alive pairs' rows alone; the device NLCC
+    builds the dense V + 1 row pointer once per AliveCsr it uploads (one
+    per ``fpm.nlcc.csr``)."""
+    e = engine(tree13 if corpus == "tree" else cycle13, nlcc_mode=mode)
+    with profiled():
+        r = e.run()
+    csrs = sum(s.name == "fpm.nlcc.csr" for s in r.spans)
+    assert csrs > 0
+    assert r.counters["nlcc_dense_ptr_builds"] == (csrs if mode == "device" else 0)
 
 
 @pytest.mark.parametrize("ranks", [1, 4])
