@@ -31,7 +31,8 @@ the full engine, its stats read included), ``fpm.lcc.download`` (the
 state's tv and alive pairs) and ``fpm.lcc.compact`` (the compact
 continuation: ``.closure``, ``.call``, ``.back``); ``fpm.nlcc`` around
 each constraint, with ``fpm.nlcc.csr``, ``fpm.nlcc.place``,
-``fpm.nlcc.walk.host`` or ``fpm.nlcc.walk.device`` and ``fpm.nlcc.marks``
+``fpm.nlcc.walk.host`` or ``fpm.nlcc.walk.device`` (with the device
+walk's own spans inside: ``engine/nlcc_device.py``) and ``fpm.nlcc.marks``
 (the outcome applied and the TP row counted), and any LCC phase it causes;
 ``fpm.state`` (each host read of the state), ``fpm.update`` (each upload
 of tv and marks) and ``fpm.result`` (the final read and the active sets).
@@ -410,6 +411,8 @@ class MatchEngine:
         cand = self._cands[pl]
         with trace.span("fpm.nlcc.place"):
             use_dev = self._nlcc_on_device(acsr, c, tv, cand, active=act)
+        if use_dev:
+            trace.count("nlcc_device_walks")
         with trace.span("fpm.nlcc.walk.device" if use_dev else "fpm.nlcc.walk.host"):
             # metadata mode: the code each hop's edge must carry
             hopc = (

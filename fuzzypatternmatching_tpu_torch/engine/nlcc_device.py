@@ -19,6 +19,15 @@ structure (``_nem_prog``, ``_tds_prog``):
 Results equal ``engine/nlcc.py`` (the host engine) and the JAX package's
 ``DeviceNlcc``: the same NlccOutcome, message counts, winners and
 subgraphs. Dedup keys are ``v * V + src`` in int64.
+
+While a torch profiler records (``utils/trace.py``), a walk keeps spans
+inside MatchEngine's ``fpm.nlcc.walk.device``: ``.prepare`` (the CSR
+upload and ``_ok_bits``), ``.expand`` (each ``expand_frontier`` call),
+``.winners`` (a nem hop's ``forward_winners`` and the forwarded keys'
+concatenation; a TDS hop's receiver-side and sender-side keep rules) and
+``.out`` (the acceptance, the validated read, the edge marks, the
+forwarded keys' sort and download and the message counts); and it counts
+the lanes each expansion took in (``nlcc_device_lanes``).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 
 from ..ops import nlcc_frontier as nf
 from ..pattern.nonlocal_constraint import NonLocalConstraint
+from ..utils import trace
 from ..utils.trace import to_device, to_host
 from .nlcc import (
     AliveCsr,
@@ -37,6 +47,13 @@ from .nlcc import (
     tds_start_pairs,
     token_sources,
 )
+
+
+# the walk's spans, inside MatchEngine's fpm.nlcc.walk.device
+_PREPARE = "fpm.nlcc.walk.device.prepare"
+_EXPAND = "fpm.nlcc.walk.device.expand"
+_WINNERS = "fpm.nlcc.walk.device.winners"
+_OUT = "fpm.nlcc.walk.device.out"
 
 
 def _ids(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -117,6 +134,14 @@ class DeviceNlcc:
         m = to_host(msg_r)
         return int(m.sum()), m
 
+    @staticmethod
+    def _expand(*args) -> nf.Expansion:
+        """``nf.expand_frontier(*args)`` in its span, its lanes counted."""
+        with trace.span(_EXPAND):
+            ex = nf.expand_frontier(*args)
+        trace.count("nlcc_device_lanes", ex.lanes)
+        return ex
+
     # -- public API (mirrors engine/nlcc.py) ---------------------------------
 
     def run_nem(
@@ -145,21 +170,37 @@ class DeviceNlcc:
         else:
             map_keys = sources
         dev, V, R, maxi = self.device, self.V, self.R, c.cycle_length
-        ptr, col = self.prepare(acsr)
-        ok_bits = self._ok_bits(labels, tv, c, map_keys)
+        with trace.span(_PREPARE):
+            ptr, col = self.prepare(acsr)
+            ok_bits = self._ok_bits(labels, tv, c, map_keys)
         validated = torch.zeros(V, dtype=torch.bool, device=dev)
         seen = to_device(forwarded.keys, dev)  # fwd_in, then winners
         edge_marks: list = []
 
         src0 = _ids(sources, dev)
-        ex = nf.expand_frontier(ptr, col, src0, src0, ok_bits, 1, R, False)
+        ex = self._expand(ptr, col, src0, src0, ok_bits, 1, R, False)
         msg_r = ex.msg_per_rank
         cur, src, parent = ex.nbr, src0[ex.tok], src0[ex.tok]
-        for h in range(1, maxi + 2):
+        for h in range(1, maxi + 1):
             if cur.numel() == 0:
                 break
             # label/bit arrival checks for hop h were applied at expansion
-            if h == maxi + 1:
+            with trace.span(_WINNERS):
+                relay = cur != src  # the target cannot relay (nem_1.hpp:173-177)
+                cur, src, parent = cur[relay], src[relay], parent[relay]
+                keys = cur.long() * V + src
+                win = nf.forward_winners(keys, parent, seen)
+                cur, src, parent, keys = cur[win], src[win], parent[win], keys[win]
+                seen = torch.cat([seen, keys])
+            # don't return to the vertex the winner received the token from
+            ex = self._expand(ptr, col, cur, parent, ok_bits, h + 1, R, True)
+            msg_r = msg_r + ex.msg_per_rank
+            cur, src, parent = ex.nbr, src[ex.tok], cur[ex.tok]
+
+        with trace.span(_OUT):
+            # the tokens that arrived at hop maxi + 1 (arrival checks
+            # applied at expansion)
+            if cur.numel() > 0:
                 if not c.valid_cycle:
                     acc = cur != src
                     if c.selected_vertices:
@@ -176,31 +217,13 @@ class DeviceNlcc:
                     edge_marks = list(
                         zip(to_host(cur[acc]).tolist(), to_host(parent[acc]).tolist())
                     )
-                break
-            relay = cur != src  # the target cannot relay (nem_1.hpp:173-177)
-            cur, src, parent = cur[relay], src[relay], parent[relay]
-            keys = cur.long() * V + src
-            win = nf.forward_winners(keys, parent, seen)
-            cur, src, parent, keys = cur[win], src[win], parent[win], keys[win]
-            seen = torch.cat([seen, keys])
-            # don't return to the vertex the winner received the token from
-            ex = nf.expand_frontier(ptr, col, cur, parent, ok_bits, h + 1, R, True)
-            msg_r = msg_r + ex.msg_per_rank
-            cur, src, parent = ex.nbr, src[ex.tok], cur[ex.tok]
-
-        if seen.shape[0] > len(forwarded.keys):
-            # ForwardedSets.add's sorted union, taken on the device: the
-            # earlier keys and this run's winners are all distinct
-            forwarded.keys = to_host(torch.sort(seen).values)
-        messages, msg_r = self._msg_out(msg_r)
-        return NlccOutcome(
-            map_keys,
-            to_host(validated[_ids(map_keys, dev).long()]),
-            messages,
-            edge_marks,
-            None,
-            msg_r,
-        )
+            if seen.shape[0] > len(forwarded.keys):
+                # ForwardedSets.add's sorted union, taken on the device: the
+                # earlier keys and this run's winners are all distinct
+                forwarded.keys = to_host(torch.sort(seen).values)
+            messages, msg_r = self._msg_out(msg_r)
+            found = to_host(validated[_ids(map_keys, dev).long()])
+        return NlccOutcome(map_keys, found, messages, edge_marks, None, msg_r)
 
     def run_tds(
         self,
@@ -226,25 +249,59 @@ class DeviceNlcc:
         dev, V, R, maxi = self.device, self.V, self.R, c.cycle_length
         W = maxi + 1  # walk history columns 0..maxi
         enum = c.enumeration
-        ptr, col = self.prepare(acsr)
-        ok_bits = self._ok_bits(labels, tv, c)
+        with trace.span(_PREPARE):
+            ptr, col = self.prepare(acsr)
+            ok_bits = self._ok_bits(labels, tv, c)
         validated = torch.zeros(V, dtype=torch.bool, device=dev)
         subgraphs = np.empty((0, maxi + 3), dtype=np.int64)
 
         # initial fan-out (position-0 send): counted, and arrival-filtered
         # for hop 1, like every later hop
         st, tg = _ids(starts, dev), _ids(targets, dev)
-        ex = nf.expand_frontier(ptr, col, st, st, ok_bits, 1, R, False)
+        ex = self._expand(ptr, col, st, st, ok_bits, 1, R, False)
         msg_r = ex.msg_per_rank
         # the walk start lives in visited[:, 0]; tgt is the expected target
         # (== start unless selected-vertices, tds_batch_1.hpp:494-500)
         cur, tgt = ex.nbr, tg[ex.tok]
         visited = torch.zeros((cur.shape[0], W), dtype=torch.int32, device=dev)
         visited[:, 0] = st[ex.tok]
-        for h in range(1, maxi + 2):
+        for h in range(1, maxi + 1):
             if cur.numel() == 0:
                 break
-            if h == maxi + 1:
+            with trace.span(_WINNERS):
+                # receiver-side enumeration rule (tds_batch_1.hpp:620-639)
+                k = int(enum[h])
+                if k == h:
+                    ok = ~(visited[:, :h] == cur[:, None]).any(1)
+                elif k < h:
+                    ok = visited[:, k] == cur
+                else:
+                    ok = torch.zeros_like(cur, dtype=torch.bool)
+                cur, tgt, visited = cur[ok], tgt[ok], visited[ok]
+                visited[:, h] = cur
+            ex = self._expand(ptr, col, cur, cur, ok_bits, -1, R, False)
+            with trace.span(_WINNERS):
+                nbr, tgt, visited = ex.nbr, tgt[ex.tok], visited[ex.tok]
+                if h == maxi:
+                    # penultimate hop (tds_batch_1.hpp:806-846)
+                    keep = nbr == tgt if c.valid_cycle else nbr != tgt
+                else:
+                    keep = torch.ones_like(nbr, dtype=torch.bool)
+                if not (h == maxi and c.valid_cycle):  # a cycle closes on the target
+                    k2 = int(enum[h + 1])
+                    if k2 == h + 1:
+                        keep &= ~(visited[:, : h + 1] == nbr[:, None]).any(1)
+                    elif k2 < h + 1:
+                        keep &= visited[:, k2] == nbr
+                    else:
+                        keep &= False
+                msg_r = msg_r.index_add(0, (nbr % R).long(), keep.long())
+                keep &= ((ok_bits[nbr.long()] >> (h + 1)) & 1) != 0
+                cur, tgt, visited = nbr[keep], tgt[keep], visited[keep]
+
+        with trace.span(_OUT):
+            # the walks that arrived at hop maxi + 1
+            if cur.numel() > 0:
                 if not c.valid_cycle:
                     acc = cur != tgt
                     emit = acc  # path writes before the ack
@@ -257,42 +314,6 @@ class DeviceNlcc:
                     last = cur[emit, None]
                     subgraphs = to_host(torch.cat([visited[emit], last, last], 1))
                     subgraphs = subgraphs.astype(np.int64)
-                break
-            # receiver-side enumeration rule (tds_batch_1.hpp:620-639)
-            k = int(enum[h])
-            if k == h:
-                ok = ~(visited[:, :h] == cur[:, None]).any(1)
-            elif k < h:
-                ok = visited[:, k] == cur
-            else:
-                ok = torch.zeros_like(cur, dtype=torch.bool)
-            cur, tgt, visited = cur[ok], tgt[ok], visited[ok]
-            visited[:, h] = cur
-            ex = nf.expand_frontier(ptr, col, cur, cur, ok_bits, -1, R, False)
-            nbr, tgt, visited = ex.nbr, tgt[ex.tok], visited[ex.tok]
-            if h == maxi:
-                # penultimate hop (tds_batch_1.hpp:806-846)
-                keep = nbr == tgt if c.valid_cycle else nbr != tgt
-            else:
-                keep = torch.ones_like(nbr, dtype=torch.bool)
-            if not (h == maxi and c.valid_cycle):  # a cycle closes on the target
-                k2 = int(enum[h + 1])
-                if k2 == h + 1:
-                    keep &= ~(visited[:, : h + 1] == nbr[:, None]).any(1)
-                elif k2 < h + 1:
-                    keep &= visited[:, k2] == nbr
-                else:
-                    keep &= False
-            msg_r = msg_r.index_add(0, (nbr % R).long(), keep.long())
-            keep &= ((ok_bits[nbr.long()] >> (h + 1)) & 1) != 0
-            cur, tgt, visited = nbr[keep], tgt[keep], visited[keep]
-
-        messages, msg_r = self._msg_out(msg_r)
-        return NlccOutcome(
-            sources,
-            to_host(validated[_ids(sources, dev).long()]),
-            messages,
-            [],
-            subgraphs,
-            msg_r,
-        )
+            messages, msg_r = self._msg_out(msg_r)
+            found = to_host(validated[_ids(sources, dev).long()])
+        return NlccOutcome(sources, found, messages, [], subgraphs, msg_r)

@@ -5,7 +5,10 @@
 * On, under ``torch.profiler.profile``: one ``fpm.search`` root, every span
   inside its parent, only the names the driver documents; the compact
   closure built by the first search on an engine and not by the second;
-  the walk span named by the constraint's placement; the NLCC's dense
+  the walk span named by the constraint's placement; the device walk's
+  own spans inside each device walk and nowhere else, and its counters
+  (the walks placed on the device, the lanes its expansions took in,
+  summed here from each call's frontier); the NLCC's dense
   row pointer built once per AliveCsr on the device route and never on
   the host route; the copy counters
   equal to the bytes a search on a full-plane engine with the host NLCC
@@ -13,9 +16,10 @@
   pairs' int64 keys and tv once down, tv once up).
 * Clock: every span, shifted by the start of a ``bench.search`` range
   around ``run()`` less its ``fpm.search`` start, lies within 0.1 ms of
-  its own ``user_annotation`` event in the profiler's exported trace.
+  its own ``user_annotation`` event in the profiler's exported trace, in
+  one of the searches after the first of a profile.
 * Results: every field that the benchmark's comparison and the result
-  writer read is the same with tracing on and off.
+  writer read is the same with tracing on and off, on every NLCC route.
 * Copies: the engine files that copy between host and device do it only
   through ``to_device``/``to_host`` (an AST scan).
 """
@@ -37,6 +41,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TREE = os.path.join(REPO, "examples", "patterns", "0", "pattern")
 CYCLE = os.path.join(REPO, "examples", "patterns_cycle", "0", "pattern")
 
+# the device walk's own spans (engine/nlcc_device.py's docstring)
+WALK = (
+    "fpm.nlcc.walk.device.prepare", "fpm.nlcc.walk.device.expand",
+    "fpm.nlcc.walk.device.winners", "fpm.nlcc.walk.device.out",
+)
 # every span name the driver opens (engine/driver.py's docstring)
 NAMES = {
     "fpm.search", "fpm.lcc", "fpm.lcc.call", "fpm.lcc.download",
@@ -44,7 +53,7 @@ NAMES = {
     "fpm.lcc.compact.back", "fpm.state", "fpm.update", "fpm.nlcc",
     "fpm.nlcc.csr", "fpm.nlcc.place", "fpm.nlcc.walk.host",
     "fpm.nlcc.walk.device", "fpm.nlcc.marks", "fpm.result",
-}
+} | set(WALK)
 # where each span may open: the names of its possible parents
 PARENTS = {
     "fpm.lcc": {"fpm.search", "fpm.nlcc"},
@@ -63,6 +72,7 @@ PARENTS = {
     "fpm.result": {"fpm.search"},
     "fpm.update": {"fpm.search", "fpm.nlcc"},
     "fpm.state": {"fpm.search", "fpm.nlcc", "fpm.result"},
+    **{name: {"fpm.nlcc.walk.device"} for name in WALK},
 }
 CPU = torch.device("cpu")
 
@@ -175,10 +185,66 @@ def test_walk_named_by_placement(cycle13, mode):
     e = engine(cycle13, nlcc_mode=mode)
     with profiled():
         r = e.run()
-    walks = {s.name for s in r.spans if s.name.startswith("fpm.nlcc.walk.")}
+    walks = {
+        s.name for s in r.spans
+        if s.name.startswith("fpm.nlcc.walk.") and r.spans[s.parent].name == "fpm.nlcc"
+    }
     assert walks == {f"fpm.nlcc.walk.{mode}"}
     places = sum(s.name == "fpm.nlcc.place" for s in r.spans)
     assert places == sum(s.name == f"fpm.nlcc.walk.{mode}" for s in r.spans) > 0
+
+
+@pytest.mark.parametrize("mode", ["host", "device"])
+@pytest.mark.parametrize("corpus", ["tree", "cycle"])
+def test_device_walk_spans(tree13, cycle13, corpus, mode):
+    """Each device walk holds one ``.prepare``, at least one ``.expand``
+    and one ``.out``, in that order; no host walk opens any of them."""
+    e = engine(tree13 if corpus == "tree" else cycle13, nlcc_mode=mode)
+    with profiled():
+        r = e.run()
+    kids = defaultdict(list)
+    for s in r.spans:
+        if s.name in WALK:
+            assert r.spans[s.parent].name == "fpm.nlcc.walk.device"
+            kids[s.parent].append(s.name.rsplit(".", 1)[1])
+    walks = [i for i, s in enumerate(r.spans) if s.name == "fpm.nlcc.walk.device"]
+    assert set(kids) == set(walks)
+    assert (len(walks) > 0) == (mode == "device")
+    for i in walks:
+        k = kids[i]
+        assert k[0] == "prepare" and k[-1] == "out" and "expand" in k
+        assert k.count("prepare") == k.count("out") == 1
+
+
+@pytest.mark.parametrize("mode", ["auto", "host", "device"])
+@pytest.mark.parametrize("corpus", ["tree", "cycle"])
+def test_device_walk_counters(tree13, cycle13, corpus, mode, monkeypatch):
+    """``nlcc_device_walks`` counts the constraint runs placed on the
+    device; ``nlcc_device_lanes`` the lanes of every expansion, here
+    summed from each call's frontier and row pointer."""
+    from fuzzypatternmatching_tpu_torch.ops import nlcc_frontier as nf
+
+    real = nf.expand_frontier
+    lanes = []
+
+    def summing(ptr, col, cur, *a, **kw):
+        c = cur.long()
+        lanes.append(int((ptr[c + 1] - ptr[c]).sum()))
+        return real(ptr, col, cur, *a, **kw)
+
+    monkeypatch.setattr(nf, "expand_frontier", summing)
+    e = engine(tree13 if corpus == "tree" else cycle13, nlcc_mode=mode)
+    with profiled():
+        r = e.run()
+    walks = sum(s.name == "fpm.nlcc.walk.device" for s in r.spans)
+    assert r.counters["nlcc_device_walks"] == walks
+    assert r.counters["nlcc_device_lanes"] == sum(lanes)
+    if mode == "device":
+        assert walks == sum(s.name == "fpm.nlcc.place" for s in r.spans) > 0
+        assert sum(lanes) > 0
+    # every message is a lane
+    tp = sum(x.messages for x in r.rows if x.phase == "TP")
+    assert sum(lanes) >= (tp if mode == "device" else 0)
 
 
 @pytest.mark.parametrize("mode", ["host", "device"])
@@ -257,23 +323,36 @@ def _worst_offset_s(r, events):
 def test_spans_on_the_profilers_clock(tree13, tmp_path):
     e = engine(tree13)
     e.run()  # the closure's build is not what is timed
-    # on a CPU shared with other processes, a preemption between the
-    # profiler's stamp and the span's clock read can shift one span of a
-    # search, so the check may take one of three searches, each in its
-    # own profile
-    worst = []
-    for k in range(3):
-        with profiled() as prof:
+    with profiled():  # the profiler's first use in the process is not either
+        e.run()
+    # as the harness's window traces them: one profile, each search in its
+    # own bench.search range, its spans matched with the events inside
+    # that range. The first range a profile opens takes tens of
+    # microseconds longer to enter than the later ones, which shifts every
+    # span of the first search by as much; and on a CPU shared with other
+    # processes a preemption between the profiler's stamp and a span's
+    # clock read can shift any one search. So the check takes one of the
+    # searches after the first.
+    results = []
+    with profiled() as prof:
+        for _ in range(6):
             with torch.profiler.record_function("bench.search"):
-                r = e.run()
-        worst.append(_worst_offset_s(r, _annotations(prof, tmp_path / f"trace{k}.json")))
-        if worst[-1] < 1e-4:
-            break
-    assert min(worst) < 1e-4, worst
+                results.append(e.run())
+    events = _annotations(prof, tmp_path / "trace.json")
+    ranges = sorted(
+        (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
+        for ev in events if ev["name"] == "bench.search"
+    )
+    assert len(ranges) == len(results)
+    worst = [
+        _worst_offset_s(r, [ev for ev in events if a <= float(ev["ts"]) <= b])
+        for r, (a, b) in zip(results, ranges)
+    ]
+    assert min(worst[1:]) < 1e-4, worst
 
 
 @pytest.mark.parametrize("corpus", ["tree", "cycle"])
-@pytest.mark.parametrize("mode", ["auto", "device"])
+@pytest.mark.parametrize("mode", ["auto", "device", "host"])
 def test_results_unchanged_by_tracing(tree13, cycle13, corpus, mode):
     cfg = tree13 if corpus == "tree" else cycle13
     e = engine(cfg, nlcc_mode=mode)
