@@ -197,8 +197,9 @@ class MatchEngine:
         # the compact closure needs the full edge_row/cols arrays, which a
         # lazily-opened GraphDb lacks
         self._compact_engine = compact and self._fast and isinstance(graph, Graph)
-        # (fp, keys, union, u_rows_uniq, alive_sub_eids, sub): the compact
-        # closure and its engine, keyed on the exact alive set
+        # (fp, keys, union, alive_sub_eids, sub): the compact closure and its
+        # engine, keyed on the alive set it was built for; it also serves any
+        # alive set inside ``union`` (``_closure``)
         self._sub_cache: tuple | None = None
         self._edge_keys: np.ndarray | None = None
         # per-constraint token-source label candidates (labels never change)
@@ -299,11 +300,13 @@ class MatchEngine:
 
     def _compact_call(self, tv, arow, acol, steps_left, tp_mark_eids):
         """``steps_left`` supersteps on the SYMMETRIC CLOSURE of the alive
-        set: a live sender edge (u,v) delivers into receiver slot (v,u) even
-        when that slot itself is dead (its message still feeds tn), so
-        dead-but-reachable slots exist in the subgraph with alive=False."""
+        set, or on a cached closure that contains it: a live sender edge
+        (u,v) delivers into receiver slot (v,u) even when that slot itself is
+        dead (its message still feeds tn), so dead-but-reachable slots exist
+        in the subgraph with alive=False. A slot of a larger closure outside
+        this one is dead both ways: it sends, receives and keeps nothing."""
         with trace.span("fpm.lcc.compact.closure"):
-            union, u_rows_uniq, alive_sub_eids, sub = self._closure(arow, acol)
+            union, alive_sub_eids, sub = self._closure(arow, acol)
         with trace.span("fpm.lcc.compact.call"):
             flag_ids = None
             if tp_mark_eids:
@@ -315,28 +318,41 @@ class MatchEngine:
             sub_state = sub.state_from_edge_ids(tv, alive_sub_eids, flag_ids=flag_ids)
             sub_state, rows, died = sub.lcc_call(sub_state, False, n_steps=steps_left)
         with trace.span("fpm.lcc.compact.back"):
-            # a live vertex with no alive incident edge is outside the
-            # closure: the sub engine never sees it, but the full engine
-            # would kill it in this call's first superstep and raise the
-            # died flag
-            live_v = np.nonzero(tv)[0]
-            if len(live_v) and not np.isin(live_v, u_rows_uniq).all():
+            # a live vertex with no alive incident edge: the full engine
+            # kills it in this call's first superstep and raises the died
+            # flag. The sub-engine zeroes its tv too, whether a larger cached
+            # closure holds its row (the keep rule) or not (no row), but
+            # raises the flag only in the first case
+            touched = np.zeros(len(tv), dtype=bool)
+            touched[arow] = True
+            touched[acol] = True
+            if ((tv != 0) & ~touched).any():
                 died = True
             tv2 = sub.tv_host(sub_state)
             a2r, a2c = sub.alive_pairs(sub_state)
             return self._state_from_pairs(tv2, a2r, a2c), rows, died
 
     def _closure(self, arow, acol):
-        """(union, u_rows_uniq, alive_sub_eids, sub) of the alive set: the
-        symmetric closure's keys, its rows, the alive set's edge ids in it
-        and the engine over it, from ``_sub_cache`` when the alive set is
-        the cached one."""
+        """(union, alive_sub_eids, sub): the keys of a symmetric closure that
+        contains the alive set, the alive set's edge ids in it and the engine
+        over it. From ``_sub_cache`` when the alive set is the cached one or
+        lies inside its closure (the alive set only shrinks within a search,
+        so a later LCC phase's lies inside the first's); the entry then keeps
+        the larger closure, which the next search's first phase hits
+        exactly. Else built, and cached."""
         vv = np.uint64(self.graph.num_vertices)
         keys = arow.astype(np.uint64) * vv + acol.astype(np.uint64)
         fp = (len(keys), int(keys[0]), int(keys[-1]))
         cache = self._sub_cache
-        if cache is not None and cache[0] == fp and np.array_equal(keys, cache[1]):
-            return cache[2:]
+        if cache is not None:
+            if cache[0] == fp and np.array_equal(keys, cache[1]):
+                return cache[2:]
+            union = cache[2]
+            # keys and union are sorted: each key's position in union
+            pos = np.searchsorted(union, keys)
+            if pos[-1] < len(union) and np.array_equal(union[pos], keys):
+                trace.count("compact_subset_hits")
+                return union, pos, cache[4]
         trace.count("compact_builds")
         rkeys = acol.astype(np.uint64) * vv + arow.astype(np.uint64)
         union = np.union1d(keys, rkeys)
@@ -359,8 +375,7 @@ class MatchEngine:
         # per-slot aliveness = membership in the original set
         pos = np.minimum(np.searchsorted(keys, union), len(keys) - 1)
         alive_sub_eids = np.nonzero(keys[pos] == union)[0]
-        u_rows_uniq = np.unique(u_row)
-        self._sub_cache = (fp, keys, union, u_rows_uniq, alive_sub_eids, sub)
+        self._sub_cache = (fp, keys, union, alive_sub_eids, sub)
         return self._sub_cache[2:]
 
     def _sync(self) -> None:

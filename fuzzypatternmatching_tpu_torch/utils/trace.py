@@ -31,17 +31,19 @@ import torch
 
 # the search's counters: bytes of the explicit copies each way (counted
 # whatever the device, so a CPU run counts what a card's would copy),
-# compact-closure builds (misses of MatchEngine._sub_cache), dense V + 1
-# row pointers of the NLCC's AliveCsr built (engine/nlcc.py), the
-# constraint runs MatchEngine placed on the device NLCC, and the lanes
-# (token, alive neighbour) that DeviceNlcc's expand_frontier calls took
-# in (engine/nlcc_device.py). The lanes are the walks' messages plus the
+# compact-closure builds (misses of MatchEngine._sub_cache), the LCC
+# phases that cache served with the closure of another alive set, one
+# that contains theirs (``compact_subset_hits``), dense V + 1 row
+# pointers of the NLCC's AliveCsr built (engine/nlcc.py), the constraint
+# runs MatchEngine placed on the device NLCC, and the lanes (token, alive
+# neighbour) that DeviceNlcc's expand_frontier calls took in
+# (engine/nlcc_device.py). The lanes are the walks' messages plus the
 # lanes no message is counted for: in a nem hop after the first the lane
 # back to the token's parent, in a TDS hop after the first the lanes
 # that its sender-side rules drop
 COUNTERS = (
-    "h2d_bytes", "d2h_bytes", "compact_builds", "nlcc_dense_ptr_builds",
-    "nlcc_device_walks", "nlcc_device_lanes",
+    "h2d_bytes", "d2h_bytes", "compact_builds", "compact_subset_hits",
+    "nlcc_dense_ptr_builds", "nlcc_device_walks", "nlcc_device_lanes",
 )
 
 

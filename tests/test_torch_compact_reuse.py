@@ -1,0 +1,192 @@
+"""The compact path's closure cache (``MatchEngine._closure``) on the CPU.
+
+An LCC phase's alive set only shrinks within a search, so every later
+phase's alive set lies inside the closure the first phase built. The cache
+serves such a set from that closure (counter ``compact_subset_hits``) and
+keeps it, so a rerun's first phase hits it exactly and builds nothing
+(counter ``compact_builds``). The slots of the larger closure outside the
+alive set's own are dead both ways, so every result equals a full-plane
+engine's (``compact=False``), the committed golden tree and a fresh build's:
+
+* the triangle (cycle_s13: three LCC phases a search) with every NLCC
+  placement, counting, edge metadata and on a two-shard mesh, searched
+  twice on one engine: 1 build and 2 subset hits, then 0 and 2;
+* a live vertex that touches no alive pair but has a row in the cached
+  closure: the larger engine kills it and raises ``died``, as the full
+  engine does; a fresh build of the smaller closure has no row for it,
+  zeroes its tv, and ``MatchEngine`` raises ``died``.
+"""
+
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from fuzzypatternmatching_tpu_torch import golden
+from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
+from fuzzypatternmatching_tpu_torch.io.results import write_results
+from fuzzypatternmatching_tpu_torch.pattern.nonlocal_constraint import (
+    load_nonlocal_constraints,
+)
+from fuzzypatternmatching_tpu_torch.pattern.pattern_graph import load_pattern_graph
+from fuzzypatternmatching_tpu_torch.utils.dist import build_mesh
+
+from test_golden_results import _tree_files
+from test_torch_trace import plain, profiled
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CYCLE_DIR = os.path.join(REPO, "examples", "patterns_cycle", "0")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def golden_meta():
+    with open(os.path.join(golden.GOLDEN_BASE, "golden_meta.json")) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def cycle13(golden_meta):
+    cfg = golden_meta["configs"]["cycle_s13"]
+    return golden.build_config(cfg["scale"], os.path.join(REPO, cfg["corpus"]))
+
+
+def twice(eng):
+    """Two searches on one engine under the profiler, so each keeps its
+    counters."""
+    with profiled():
+        return eng.run(), eng.run()
+
+
+def reuse_counts(r):
+    return r.counters["compact_builds"], r.counters["compact_subset_hits"]
+
+
+def assert_golden(r, meta, labels, pattern, constraints, tmp_path):
+    cfg = meta["configs"]["cycle_s13"]
+    assert r.iterations == cfg["iterations"]
+    assert len(r.active_vertices) == cfg["active_vertices"]
+    assert len(r.active_edges) == cfg["active_edges"]
+    assert sum(len(v) for v in r.subgraphs.values()) == cfg["subgraphs"]
+    out = str(tmp_path / "out")
+    write_results(out, 0, r, labels, meta["num_ranks"], pattern.edge_count,
+                  pattern.vertex_count, len(constraints))
+    assert _tree_files(out) == _tree_files(os.path.join(golden.GOLDEN_BASE, "cycle_s13"))
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{"nlcc_mode": "host"}, {"nlcc_mode": "device"}, {"nlcc_mode": "auto"},
+     {"counting": True}],
+    ids=["host", "device", "auto", "counting"],
+)
+def test_cycle_reruns_reuse_the_closure(golden_meta, cycle13, kw, tmp_path):
+    nr = golden_meta["num_ranks"]
+    eng = MatchEngine(*cycle13, num_ranks=nr, device="cpu", **kw)
+    first, second = twice(eng)
+    assert reuse_counts(first) == (1, 2)
+    assert reuse_counts(second) == (0, 2)
+    full = MatchEngine(*cycle13, num_ranks=nr, compact=False, device="cpu", **kw).run()
+    assert plain(first) == plain(second) == plain(full)
+    assert_golden(second, golden_meta, *cycle13[1:], tmp_path)
+
+
+def test_edge_metadata_reruns_reuse_the_closure(golden_meta, cycle13, tmp_path):
+    """The triangle with 55 on every pattern edge and every graph edge:
+    metadata mode on (each constraint on the host NLCC), the plain search's
+    result, and the closure's edge metadata served with it."""
+    corpus = tmp_path / "0"
+    shutil.copytree(CYCLE_DIR, corpus)
+    edges = (corpus / "pattern_edge").read_text().split("\n")
+    rows = [f"{ln} {i} 55" for i, ln in enumerate(e for e in edges if e.strip())]
+    (corpus / "pattern_edge_data").write_text("\n".join(rows) + "\n")
+    prefix = str(corpus / "pattern")
+    pattern = load_pattern_graph(prefix)
+    constraints = load_nonlocal_constraints(prefix)
+    assert pattern.edge_data is not None
+    g, labels = cycle13[:2]
+    nr = golden_meta["num_ranks"]
+    ed = np.full(g.num_edges, 55, dtype=np.int64)
+    eng = MatchEngine(g, labels, pattern, constraints, num_ranks=nr, edge_data=ed,
+                      device="cpu")
+    assert eng._meta is not None
+    first, second = twice(eng)
+    assert reuse_counts(first) == (1, 2)
+    assert reuse_counts(second) == (0, 2)
+    full = MatchEngine(g, labels, pattern, constraints, num_ranks=nr, edge_data=ed,
+                       compact=False, device="cpu").run()
+    no_meta = MatchEngine(*cycle13, num_ranks=nr, device="cpu").run()
+    assert plain(first) == plain(second) == plain(full) == plain(no_meta)
+
+
+def test_mesh_compact_reruns_reuse_the_closure(golden_meta, cycle13):
+    """The mesh's compact continuation runs on its first device with the
+    same cache."""
+    nr = golden_meta["num_ranks"]
+    kw = dict(num_ranks=nr, lcc_engine="sharded", nlcc_mode="device")
+    eng = MatchEngine(*cycle13, mesh=build_mesh(shards=2, device="cpu"), **kw)
+    first, second = twice(eng)
+    assert reuse_counts(first) == (1, 2)
+    assert reuse_counts(second) == (0, 2)
+    full = MatchEngine(*cycle13, mesh=build_mesh(shards=2, device="cpu"),
+                       compact=False, **kw).run()
+    assert plain(first) == plain(second) == plain(full)
+
+
+def test_lone_live_vertex_dies_on_every_route(golden_meta, cycle13):
+    """The first alive set's closure cached, LCC phases run on it to a state
+    in which none dies; then a dead vertex x with a row in the cached
+    closure and no alive pair is given a template bit. Served from the
+    cached closure, whose engine kills x by its keep rule, from a fresh
+    build of the smaller closure, which has no row for x, and on the full
+    engine, the phase returns the same state: x's tv zeroed, ``died``
+    raised (by x alone), the same alive pairs and LP rows."""
+    eng = MatchEngine(*cycle13, num_ranks=golden_meta["num_ranks"], device="cpu")
+    lcc = eng.lcc
+    steps = eng.pattern.diameter - 1
+    state, _, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
+    for _ in range(20):
+        tv = lcc.tv_host(state).copy()
+        arow, acol = lcc.alive_pairs(state)
+        state, _, died = eng._compact_call(tv, arow, acol, steps, None)
+        if not died:
+            break
+    assert not died
+    primed = eng._sub_cache
+    v = np.uint64(len(tv))
+    in_closure = np.zeros(len(tv), dtype=bool)
+    in_closure[(primed[2] // v).astype(np.int64)] = True
+    touched = np.zeros(len(tv), dtype=bool)
+    touched[arow] = touched[acol] = True
+    cand = np.flatnonzero((tv == 0) & in_closure & ~touched)
+    assert len(cand) > 0
+    x = int(cand[0])
+    tv[x] = 1
+
+    cached = eng._compact_call(tv, arow, acol, steps, None)
+    assert eng._sub_cache is primed  # served from it, and kept
+    eng._sub_cache = None
+    fresh = eng._compact_call(tv, arow, acol, steps, None)
+    assert eng._sub_cache is not primed
+    full = lcc.lcc_call(eng._state_from_pairs(tv, arow, acol), False, n_steps=steps)
+
+    def read(res):
+        st, rows, died = res
+        return (
+            lcc.tv_host(st).tolist(), [p.tolist() for p in lcc.alive_pairs(st)],
+            [(r[:3], {k: a.tolist() for k, a in r[3].items()}) for r in rows], died,
+        )
+
+    assert read(cached) == read(fresh) == read(full)
+    assert cached[2] is True
+    assert lcc.tv_host(cached[0])[x] == 0

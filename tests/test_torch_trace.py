@@ -4,7 +4,8 @@
   counter and calls ``torch.profiler.record_function`` not once.
 * On, under ``torch.profiler.profile``: one ``fpm.search`` root, every span
   inside its parent, only the names the driver documents; the compact
-  closure built by the first search on an engine and not by the second;
+  closure built by the first search on an engine and not by the second,
+  and the cycle's later LCC phases served from it in both;
   the walk span named by the constraint's placement; the device walk's
   own spans inside each device walk and nowhere else, and its counters
   (the walks placed on the device, the lanes its expansions took in,
@@ -171,12 +172,16 @@ def test_span_tree(tree13, cycle13, corpus, compact, mode):
     assert trace._current.get() is None
 
 
-def test_compact_builds_first_search_only(tree13):
-    e = engine(tree13)
+@pytest.mark.parametrize("corpus,hits", [("tree", 0), ("cycle", 2)])
+def test_compact_builds_first_search_only(tree13, cycle13, corpus, hits):
+    """The first LCC phase builds the closure; the cycle's later phases,
+    whose alive sets lie inside it, are served from it."""
+    e = engine(tree13 if corpus == "tree" else cycle13)
     with profiled():
         first, second = e.run(), e.run()
     assert first.counters["compact_builds"] == 1
     assert second.counters["compact_builds"] == 0
+    assert first.counters["compact_subset_hits"] == second.counters["compact_subset_hits"] == hits
     assert [s.name for s in first.spans] == [s.name for s in second.spans]
 
 
