@@ -10,10 +10,13 @@ over the pruned subgraph, on the same device — or on the flat engine
 (``engine/lcc.py``), whose state the driver exchanges as E-sized global
 arrays, or on a mesh of shards (``lcc_engine="sharded"`` or ``mesh=``:
 ``parallel/sharded.py``, with the compact continuation on the mesh's first
-device). Each NLCC constraint runs on the device engine
-(``engine/nlcc_device.py``; on a mesh ``parallel/nlcc_sharded.py``) or the
-host engine (``engine/nlcc.py``, the port's copy of the JAX package's),
-placed by ``nlcc_mode``; the placement never changes a result.
+device). The compact continuation keeps its state between LCC phases on
+the host, in the driver (``_HostState``: tv, the alive pairs and the TP
+marks); the engines hold only device states. Each NLCC constraint runs on
+the device engine (``engine/nlcc_device.py``; on a mesh
+``parallel/nlcc_sharded.py``) or the host engine (``engine/nlcc.py``, the
+port's copy of the JAX package's), placed by ``nlcc_mode``; the placement
+never changes a result.
 
 Counting-LCC (``counting=True``) and edge-metadata matching
 (``edge_data``, active only when the pattern carries ``pattern_edge_data``
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 import time
 import warnings
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -72,6 +76,28 @@ from .result import MatchResult, PhaseRow
 # has at least this many lanes (set from H100 timings of both placements,
 # PERF.md)
 NLCC_DEVICE_MIN = 1 << 12
+
+
+@dataclass
+class _HostState:
+    """The compact continuation's state between LCC phases, on the host:
+    tv (uint32 [V]), the alive (row, col) pairs in CSR row-major order and
+    the TP success marks (CSR edge ids), all int64. The sub-engine numbers
+    vertices as the graph does, so its output is this record as it comes;
+    it becomes a full-engine state only in ``_lcc_calls``."""
+
+    tv: np.ndarray
+    arow: np.ndarray
+    acol: np.ndarray
+    marks: np.ndarray
+
+    def with_updates(self, tv: np.ndarray, tp_marks) -> _HostState:
+        """New tv, and ``tp_marks`` merged into the marks (an empty list
+        leaves them as they are)."""
+        marks = self.marks
+        if tp_marks:
+            marks = np.union1d(marks, np.asarray(list(tp_marks), dtype=np.int64))
+        return _HostState(np.asarray(tv).astype(np.uint32), self.arow, self.acol, marks)
 
 
 class MatchEngine:
@@ -277,11 +303,18 @@ class MatchEngine:
             died_any = died_any or d1
             steps_left -= 1
         if steps_left > 0:
-            with trace.span("fpm.lcc.download"):
-                tv = self.lcc.tv_host(state)
-                arow, acol = self.lcc.alive_pairs(state)
+            if isinstance(state, _HostState):
+                tv, arow, acol = state.tv, state.arow, state.acol
+            else:
+                with trace.span("fpm.lcc.download"):
+                    tv = self.lcc.tv_host(state)
+                    arow, acol = self.lcc.alive_pairs(state)
             if len(arow) == 0 or len(arow) > self.graph.num_edges // 4:
                 with trace.span("fpm.lcc.call"):
+                    if isinstance(state, _HostState):
+                        # a compact phase's output lies inside its input (at
+                        # most E/4), so only an empty alive set gets here
+                        state = self._state_from_pairs(tv, arow, acol, state.marks)
                     state, r2, d2 = self.lcc.lcc_call(
                         state, False, n_steps=steps_left
                     )
@@ -328,9 +361,11 @@ class MatchEngine:
             touched[acol] = True
             if ((tv != 0) & ~touched).any():
                 died = True
-            tv2 = sub.tv_host(sub_state)
+            # the sub-engine starts alive only on the input pairs and alive
+            # only shrinks, so its alive pairs are edges of the graph
             a2r, a2c = sub.alive_pairs(sub_state)
-            return self._state_from_pairs(tv2, a2r, a2c), rows, died
+            host = _HostState(sub.tv_host(sub_state), a2r, a2c, np.empty(0, np.int64))
+            return host, rows, died
 
     def _closure(self, arow, acol):
         """(union, alive_sub_eids, sub): the keys of a symmetric closure that
@@ -390,16 +425,23 @@ class MatchEngine:
             result.rows.append(PhaseRow(itr, "LP", s, av, ae, msgs, dt, per_rank))
             result.traversed_edges += msgs
 
-    def _state_from_pairs(self, tv, arow, acol):
-        """Full-engine state with the alive set given as (row, col) pairs —
-        lazy (host data only) on the compact path."""
+    def _state_from_pairs(self, tv, arow, acol, flag_ids=None):
+        """Full-engine state with the alive set given as (row, col) pairs
+        and TP success marks on the edge ids ``flag_ids``."""
         edge_keys = self._edge_keys_cached()
         keys = arow.astype(np.uint64) * np.uint64(
             self.graph.num_vertices
         ) + acol.astype(np.uint64)
         pos = np.searchsorted(edge_keys, keys)
         eids = pos[edge_keys[np.minimum(pos, len(edge_keys) - 1)] == keys]
-        return self.lcc.state_from_edge_ids(tv, eids, lazy=self._compact_engine)
+        return self.lcc.state_from_edge_ids(tv, eids, flag_ids=flag_ids)
+
+    def _with_updates(self, state, tv: np.ndarray, tp_marks):
+        """``state`` with tv replaced and the TP success marks set: the
+        compact continuation's on the host, any other by the engine."""
+        if isinstance(state, _HostState):
+            return state.with_updates(tv, tp_marks)
+        return self.lcc.with_updates(state, tv, tp_marks)
 
     def _nlcc_on_device(
         self, acsr: AliveCsr, c: NonLocalConstraint, tv: np.ndarray,
@@ -471,9 +513,10 @@ class MatchEngine:
             )
         pair_meta = None
         if self._meta is not None:
-            if hasattr(self.lcc, "alive_edge_ids"):
-                # mesh engine: its edge ids are the pair order (a lazily
-                # opened GraphDb has no E-sized key array)
+            if hasattr(self.lcc, "alive_edge_ids") and not isinstance(state, _HostState):
+                # mesh engine's state: its edge ids are the pair order (a
+                # lazily opened GraphDb has no E-sized key array; a host
+                # state exists only over a Graph)
                 pair_meta = self._meta[2][self.lcc.alive_edge_ids(state)]
             else:
                 keys = arow.astype(np.uint64) * np.uint64(g.num_vertices) + acol.astype(
@@ -485,8 +528,10 @@ class MatchEngine:
     def _host_state(self, state):
         """(tv, arow, acol, alive) on the host: the alive (row, col) pairs
         in CSR row-major order, and for the flat engine its E-sized alive
-        flags (None for the bucketed engine)."""
+        flags (None for the bucketed and mesh engines)."""
         with trace.span("fpm.state"):
+            if isinstance(state, _HostState):
+                return state.tv.copy(), state.arow, state.acol, None
             if self._fast:
                 arow, acol = self.lcc.alive_pairs(state)
                 return self.lcc.tv_host(state).copy(), arow, acol, None
@@ -586,7 +631,7 @@ class MatchEngine:
                             # the constraint's span
                             with trace.span("fpm.update"):
                                 if fast:
-                                    state = self.lcc.with_updates(state, tv, tp_marks)
+                                    state = self._with_updates(state, tv, tp_marks)
                                 else:
                                     state = self.lcc.state_from_global(tv, alive, tp_flag)
                             # tp success marks are carried into the compact
@@ -604,7 +649,7 @@ class MatchEngine:
                             acsr = act = None  # pruned adjacency changed
                 with trace.span("fpm.update"):
                     if fast:
-                        state = self.lcc.with_updates(state, tv, tp_marks)
+                        state = self._with_updates(state, tv, tp_marks)
                         pending_marks = list(tp_marks)
                     else:
                         state = self.lcc.state_from_global(tv, alive, tp_flag)

@@ -35,6 +35,7 @@ from ..graph.csr import Graph
 from ..ops.lcc_superstep import alive_table, rev_alive_lookup
 from ..pattern.pattern_graph import PatternGraph
 from .lcc_bucketed import MAX_TEMPLATE_VERTICES, keep_mask_per_i, or_over_bits
+from .result import stats_rows
 
 
 @dataclass
@@ -285,20 +286,7 @@ class LccEngine:
                 self.label_tv if init else tv, alive, flag, init=init
             )
             stats.append(st)
-        rr = self.num_ranks
-        rows = []
-        any_died = False
-        if stats:
-            st_np = torch.stack(stats).cpu().numpy()
-            for row in st_np:
-                per = {
-                    "av": row[0:rr].copy(),
-                    "ae": row[rr : 2 * rr].copy(),
-                    "msg": row[2 * rr : 3 * rr].copy(),
-                }
-                rows.append(
-                    (int(per["av"].sum()), int(per["ae"].sum()),
-                     int(per["msg"].sum()), per)
-                )
-            any_died = bool((st_np[:, -1] != 0).any())
+        rows, any_died = (
+            stats_rows(torch.stack(stats).cpu().numpy(), self.num_ranks) if stats else ([], False)
+        )
         return LccState(tv, alive, flag), rows, any_died

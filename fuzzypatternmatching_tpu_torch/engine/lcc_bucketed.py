@@ -67,7 +67,7 @@ from ..ops.lcc_superstep import (
 )
 from ..pattern.pattern_graph import PatternGraph
 from ..utils.trace import to_device, to_host
-from .lazy_state import merged_flag_ids, normalized_edge_ids, normalized_flag_ids
+from .result import stats_rows
 
 @dataclass
 class Bucket:
@@ -98,19 +98,17 @@ class _DeviceBucket:
 
 @dataclass
 class BucketedState:
-    tv: torch.Tensor | None  # int32 [V] on the engine's device
-    alive: torch.Tensor | None  # bool [S+1] (last slot always dead)
-    tp_flag: torch.Tensor | None  # bool [S+1]
+    """The engine's device arrays and their host memos. Between the compact
+    continuation's phases the driver holds the state on the host itself
+    (``engine/driver.py::_HostState``)."""
+
+    tv: torch.Tensor  # int32 [V] on the engine's device
+    alive: torch.Tensor  # bool [S+1] (last slot always dead)
+    tp_flag: torch.Tensor  # bool [S+1]
     # memo for alive_pairs (the driver asks several times per phase)
     pairs_cache: tuple | None = None
     # host copy of tv (uint32)
     tv_np: np.ndarray | None = None
-    # LAZY representation: between compact continuations the state lives on
-    # the host as sorted original edge ids (alive set) and TP-marked edge
-    # ids; tv/alive/tp_flag are None then and are uploaded only if a full
-    # lcc_call runs on it
-    lazy_edge_ids: np.ndarray | None = None
-    lazy_flag_ids: np.ndarray | None = None
 
 
 class BucketedLccEngine:
@@ -500,10 +498,6 @@ class BucketedLccEngine:
         )
 
     def state_to_global(self, state: BucketedState):
-        if state.alive is None:
-            edge_alive = np.zeros(self.graph.num_edges, dtype=bool)
-            edge_alive[state.lazy_edge_ids] = True
-            return state.tv_np.copy(), edge_alive
         al_flat = to_host(state.alive)
         return self.tv_host(state).copy(), al_flat[self._edge_to_slot]
 
@@ -514,17 +508,9 @@ class BucketedLccEngine:
 
     def alive_pairs(self, state: BucketedState):
         """(row, col) int64 arrays of the alive slots in CSR row-major
-        order. Device states find the alive slots on the device and
-        download only their (row, col) keys."""
+        order: the alive slots found on the device, only their (row, col)
+        keys downloaded."""
         if state.pairs_cache is not None:
-            return state.pairs_cache
-        if state.alive is None:
-            # lazy state: ascending edge ids are CSR row-major order
-            eids = state.lazy_edge_ids
-            state.pairs_cache = (
-                self.graph.edge_row[eids].astype(np.int64),
-                self.graph.cols[eids].astype(np.int64),
-            )
             return state.pairs_cache
         v = self.num_vertices
         keys = [torch.empty(0, dtype=torch.int64, device=self.device)]
@@ -540,19 +526,11 @@ class BucketedLccEngine:
 
     def state_from_edge_ids(
         self, tv: np.ndarray, edge_ids: np.ndarray, flag_ids=None,
-        lazy: bool = False,
     ) -> BucketedState:
         """State whose alive set is exactly the given original edge ids;
-        ``flag_ids`` optionally sets TP success marks on those edges.
-        ``lazy=True`` keeps the state on the host (see BucketedState)."""
-        eids = normalized_edge_ids(edge_ids)
+        ``flag_ids`` optionally sets TP success marks on those edges."""
+        eids = np.asarray(edge_ids, dtype=np.int64)
         tv32 = np.asarray(tv).astype(np.uint32)
-        if lazy:
-            return BucketedState(
-                tv=None, alive=None, tp_flag=None, tv_np=tv32,
-                lazy_edge_ids=eids,
-                lazy_flag_ids=normalized_flag_ids(flag_ids),
-            )
         fids = np.empty(0, np.int64) if flag_ids is None else np.asarray(
             flag_ids, dtype=np.int64
         )
@@ -563,26 +541,9 @@ class BucketedLccEngine:
             tv_np=tv32,
         )
 
-    def _materialize(self, state: BucketedState) -> BucketedState:
-        """Device arrays for a lazy state (no-op otherwise)."""
-        if state.alive is not None:
-            return state
-        s = self.state_from_edge_ids(
-            state.tv_np, state.lazy_edge_ids, flag_ids=state.lazy_flag_ids
-        )
-        s.pairs_cache = state.pairs_cache
-        return s
-
     def with_updates(self, state: BucketedState, tv: np.ndarray, tp_marks):
         """Replace tv and set token-passing success marks (slot flags)."""
         tv32 = np.asarray(tv).astype(np.uint32)
-        if state.alive is None:
-            return BucketedState(
-                tv=None, alive=None, tp_flag=None, tv_np=tv32,
-                pairs_cache=state.pairs_cache,
-                lazy_edge_ids=state.lazy_edge_ids,
-                lazy_flag_ids=merged_flag_ids(state.lazy_flag_ids, tp_marks),
-            )
         flag = state.tp_flag
         if tp_marks:
             idx = self._edge_to_slot[np.asarray(list(tp_marks), dtype=np.int64)]
@@ -607,7 +568,6 @@ class BucketedLccEngine:
         superstep."""
         if n_steps is None:
             n_steps = self.p.diameter
-        state = self._materialize(state)
         tv, alive, flag = state.tv, state.alive, state.tp_flag
         stats = []
         for step in range(n_steps):
@@ -616,20 +576,7 @@ class BucketedLccEngine:
                 self.label_tv if init else tv, alive, flag, init=init
             )
             stats.append(st)
-        rr = self.num_ranks
-        rows = []
-        any_died = False
-        if stats:
-            st_np = to_host(torch.stack(stats))
-            for row in st_np:
-                per = {
-                    "av": row[0:rr].copy(),
-                    "ae": row[rr : 2 * rr].copy(),
-                    "msg": row[2 * rr : 3 * rr].copy(),
-                }
-                rows.append(
-                    (int(per["av"].sum()), int(per["ae"].sum()),
-                     int(per["msg"].sum()), per)
-                )
-            any_died = bool((st_np[:, -1] != 0).any())
+        rows, any_died = (
+            stats_rows(to_host(torch.stack(stats)), self.num_ranks) if stats else ([], False)
+        )
         return BucketedState(tv, alive, flag), rows, any_died

@@ -1,5 +1,6 @@
 """Result containers of the match driver (the port's own copy of
-``fuzzypatternmatching_tpu/engine/result.py``)."""
+``fuzzypatternmatching_tpu/engine/result.py``), and ``stats_rows``, the LCC
+engines' per-superstep stats turned into their rows."""
 
 from __future__ import annotations
 
@@ -54,3 +55,22 @@ class MatchResult:
             (r.itr, r.phase, r.step, r.active_vertices, r.active_edges)
             for r in self.rows
         ]
+
+
+def stats_rows(st_np, num_ranks: int) -> tuple[list, bool]:
+    """The LCC engines' per-superstep stats, host int64 [steps, 3R + 1]
+    (av, ae and msg per output rank, then the died flag), as one
+    (av, ae, msgs, per_rank) row a superstep, and whether any superstep
+    raised the died flag."""
+    rr = num_ranks
+    rows = []
+    for row in st_np:
+        per = {
+            "av": row[0:rr].copy(),
+            "ae": row[rr : 2 * rr].copy(),
+            "msg": row[2 * rr : 3 * rr].copy(),
+        }
+        rows.append(
+            (int(per["av"].sum()), int(per["ae"].sum()), int(per["msg"].sum()), per)
+        )
+    return rows, bool((st_np[:, -1] != 0).any())

@@ -31,7 +31,7 @@ every JAX process builds the same global arrays before ``device_put``) and
 uploads and runs only its own shards; the exchanges and the counters go
 through the process group, so ``lcc_call`` returns the same rows in every
 process. The host reads of the whole state (``tv_host``, ``alive_pairs``,
-``state_to_global``, the lazy states, ``with_updates``) serve the
+``state_to_global``, ``with_updates``) serve the
 single-controller host loop of ``MatchEngine`` and refuse such a mesh;
 ``local_blocks`` reads each process's own shards.
 Its default, non-init branch calls ``gather_accept_or_payload`` once per
@@ -69,7 +69,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..engine.lazy_state import merged_flag_ids, normalized_edge_ids, normalized_flag_ids
 from ..engine.lcc_bucketed import (
     MAX_TEMPLATE_VERTICES,
     keep_mask_per_i,
@@ -77,6 +76,7 @@ from ..engine.lcc_bucketed import (
     segment_or,
 )
 from ..ops.lcc_superstep import gather_accept_or_payload, row_or
+from ..engine.result import stats_rows
 from ..pattern.pattern_graph import PatternGraph
 from .mesh import Mesh
 
@@ -98,16 +98,12 @@ def _unique_inverse(keys: np.ndarray, size: int):
 
 @dataclass
 class ShardedState:
-    tv: list | None  # per shard int32 [block], the owner blocks of tv
-    alive: list | None  # per shard bool [S], the chunk's ELL slots
-    tp_flag: list | None  # per shard bool [S]
+    tv: list  # per shard int32 [block], the owner blocks of tv
+    alive: list  # per shard bool [S], the chunk's ELL slots
+    tp_flag: list  # per shard bool [S]
     # memo for alive_pairs: (rows, cols, edge ids)
     pairs_cache: tuple | None = None
     tv_np: np.ndarray | None = None  # host copy of tv (uint32 [V])
-    # LAZY state (as BucketedState): host data only, the alive set as
-    # sorted edge ids, uploaded when a full mesh lcc_call consumes it
-    lazy_edge_ids: np.ndarray | None = None
-    lazy_flag_ids: np.ndarray | None = None
 
 
 @dataclass
@@ -822,15 +818,12 @@ class ShardedLccEngine:
         self._single_controller("alive_pairs")
         if state.pairs_cache is not None:
             return state.pairs_cache[:2]
-        if state.alive is None:  # lazy: the sorted edge ids are the pairs
-            ids = state.lazy_edge_ids
-        else:
-            dev0 = self._shards[0].device
-            eids = [
-                s.slot_to_edge[torch.nonzero(a).view(-1)].to(dev0)
-                for s, a in zip(self._shards, state.alive)
-            ]
-            ids = torch.sort(torch.cat(eids)).values.cpu().numpy().astype(np.int64)
+        dev0 = self._shards[0].device
+        eids = [
+            s.slot_to_edge[torch.nonzero(a).view(-1)].to(dev0)
+            for s, a in zip(self._shards, state.alive)
+        ]
+        ids = torch.sort(torch.cat(eids)).values.cpu().numpy().astype(np.int64)
         state.pairs_cache = (
             np.asarray(self.graph.edge_row_at(ids)).astype(np.int64),
             np.asarray(self.graph.cols_at(ids)).astype(np.int64),
@@ -845,18 +838,10 @@ class ShardedLccEngine:
 
     def state_from_edge_ids(
         self, tv: np.ndarray, edge_ids: np.ndarray, flag_ids=None,
-        lazy: bool = False,
     ) -> ShardedState:
         """State whose alive set is exactly the given edge ids, with TP
-        marks on ``flag_ids``; ``lazy=True`` keeps it on the host."""
+        marks on ``flag_ids``."""
         tv32 = np.asarray(tv).astype(np.uint32)
-        if lazy:
-            self._single_controller("a lazy state")
-            return ShardedState(
-                tv=None, alive=None, tp_flag=None, tv_np=tv32,
-                lazy_edge_ids=normalized_edge_ids(edge_ids),
-                lazy_flag_ids=normalized_flag_ids(flag_ids),
-            )
         return ShardedState(
             tv=self._tv_blocks(tv32),
             alive=self._slot_flags(edge_ids),
@@ -864,27 +849,10 @@ class ShardedLccEngine:
             tv_np=tv32,
         )
 
-    def _materialize(self, state: ShardedState) -> ShardedState:
-        """Device arrays for a lazy state (no-op otherwise)."""
-        if state.alive is not None:
-            return state
-        s = self.state_from_edge_ids(
-            state.tv_np, state.lazy_edge_ids, flag_ids=state.lazy_flag_ids
-        )
-        s.pairs_cache = state.pairs_cache
-        return s
-
     def with_updates(self, state: ShardedState, tv: np.ndarray, tp_marks):
         """Replace tv and set token-passing success marks (slot flags)."""
         self._single_controller("with_updates")
         tv32 = np.asarray(tv).astype(np.uint32)
-        if state.alive is None:
-            return ShardedState(
-                tv=None, alive=None, tp_flag=None, tv_np=tv32,
-                pairs_cache=state.pairs_cache,
-                lazy_edge_ids=state.lazy_edge_ids,
-                lazy_flag_ids=merged_flag_ids(state.lazy_flag_ids, tp_marks),
-            )
         flag = state.tp_flag
         if tp_marks:
             slots = self._edge_to_ellslot[np.asarray(list(tp_marks), dtype=np.int64)]
@@ -907,7 +875,6 @@ class ShardedLccEngine:
         (state, rows, died), one (av, ae, msgs, per_rank) row a superstep."""
         if n_steps is None:
             n_steps = self.p.diameter
-        state = self._materialize(state)
         tv, alive, flag = state.tv, state.alive, state.tp_flag
         stats = []
         for step in range(n_steps):
@@ -915,20 +882,7 @@ class ShardedLccEngine:
                 tv, alive, flag, init=global_init_step and step == 0
             )
             stats.append(st)
-        rr = self.num_ranks
-        rows = []
-        any_died = False
-        if stats:
-            st_np = torch.stack(stats).cpu().numpy()
-            for row in st_np:
-                per = {
-                    "av": row[0:rr].copy(),
-                    "ae": row[rr : 2 * rr].copy(),
-                    "msg": row[2 * rr : 3 * rr].copy(),
-                }
-                rows.append(
-                    (int(per["av"].sum()), int(per["ae"].sum()),
-                     int(per["msg"].sum()), per)
-                )
-            any_died = bool((st_np[:, -1] != 0).any())
+        rows, any_died = (
+            stats_rows(torch.stack(stats).cpu().numpy(), self.num_ranks) if stats else ([], False)
+        )
         return ShardedState(tv, alive, flag), rows, any_died

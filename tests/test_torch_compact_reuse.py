@@ -14,7 +14,9 @@ engine's (``compact=False``), the committed golden tree and a fresh build's:
 * a live vertex that touches no alive pair but has a row in the cached
   closure: the larger engine kills it and raises ``died``, as the full
   engine does; a fresh build of the smaller closure has no row for it,
-  zeroes its tv, and ``MatchEngine`` raises ``died``.
+  zeroes its tv, and ``MatchEngine`` raises ``died``;
+* the driver's host state with an empty alive set, the one kind that
+  reaches the full engine, against the device state it stands for.
 """
 
 import json
@@ -26,7 +28,8 @@ import pytest
 import torch
 
 from fuzzypatternmatching_tpu_torch import golden
-from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
+from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine, _HostState
+from fuzzypatternmatching_tpu_torch.engine.result import MatchResult
 from fuzzypatternmatching_tpu_torch.io.results import write_results
 from fuzzypatternmatching_tpu_torch.pattern.nonlocal_constraint import (
     load_nonlocal_constraints,
@@ -66,6 +69,10 @@ def twice(eng):
     counters."""
     with profiled():
         return eng.run(), eng.run()
+
+
+def pair_keys(arow, acol, v):
+    return arow.astype(np.int64) * v + acol
 
 
 def reuse_counts(r):
@@ -156,9 +163,12 @@ def test_lone_live_vertex_dies_on_every_route(golden_meta, cycle13):
     steps = eng.pattern.diameter - 1
     state, _, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
     for _ in range(20):
-        tv = lcc.tv_host(state).copy()
-        arow, acol = lcc.alive_pairs(state)
+        tv, arow, acol, _ = eng._host_state(state)
         state, _, died = eng._compact_call(tv, arow, acol, steps, None)
+        # the sub-engine's alive pairs lie inside its input pairs, so the
+        # driver's host state takes them unfiltered
+        assert np.isin(pair_keys(state.arow, state.acol, len(tv)),
+                       pair_keys(arow, acol, len(tv))).all()
         if not died:
             break
     assert not died
@@ -181,12 +191,70 @@ def test_lone_live_vertex_dies_on_every_route(golden_meta, cycle13):
     full = lcc.lcc_call(eng._state_from_pairs(tv, arow, acol), False, n_steps=steps)
 
     def read(res):
+        # the compact routes return the driver's host state, the full
+        # engine a device state
         st, rows, died = res
+        tv_r, arow_r, acol_r, _ = eng._host_state(st)
         return (
-            lcc.tv_host(st).tolist(), [p.tolist() for p in lcc.alive_pairs(st)],
+            tv_r.tolist(), [arow_r.tolist(), acol_r.tolist()],
             [(r[:3], {k: a.tolist() for k, a in r[3].items()}) for r in rows], died,
         )
 
     assert read(cached) == read(fresh) == read(full)
     assert cached[2] is True
-    assert lcc.tv_host(cached[0])[x] == 0
+    assert cached[0].tv[x] == 0
+
+
+@pytest.mark.parametrize("shards", [0, 2], ids=["bucketed", "mesh"])
+def test_empty_host_state_meets_the_full_engine(golden_meta, cycle13, shards):
+    """A host state whose alive set is empty is the one that reaches the
+    full engine (a compact phase's output lies inside its input, at most
+    E/4). Made a device state there, its phase gives the LP rows,
+    ``died``, tv and alive pairs of the device state with the same tv and
+    no alive slot."""
+    kw = {"mesh": build_mesh(shards=shards, device="cpu")} if shards else {"device": "cpu"}
+    eng = MatchEngine(*cycle13, num_ranks=golden_meta["num_ranks"], **kw)
+    lcc = eng.lcc
+    state, _, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
+    tv = lcc.tv_host(state).copy()
+    assert (tv != 0).any()
+    none = np.empty(0, dtype=np.int64)
+    marks = np.array([0, 5], dtype=np.int64)
+    host = _HostState(tv, none, none, marks)
+
+    def phase(st):
+        res = MatchResult()
+        st2, died = eng._lcc_calls(st, False, 1, res, None)
+        tv2, arow, acol, _ = eng._host_state(st2)
+        rows = [(r.itr, r.step, r.active_vertices, r.active_edges, r.messages,
+                 {k: a.tolist() for k, a in r.per_rank.items()}) for r in res.rows]
+        return rows, died, tv2.tolist(), arow.tolist(), acol.tolist()
+
+    got = phase(host)
+    want = phase(lcc.state_from_edge_ids(tv, none, flag_ids=marks))
+    assert got == want
+    assert got[1] is True and not any(got[2])  # every live vertex died
+    assert len(got[0]) == eng.pattern.diameter
+
+
+def test_host_state_updates_copy_and_leave_the_original(golden_meta, cycle13):
+    """``_with_updates`` on a host state returns a new one and leaves the
+    original's tv and marks as they were; ``_host_state`` hands out a copy
+    of tv, which the NLCC deletes sources from in place."""
+    eng = MatchEngine(*cycle13, num_ranks=golden_meta["num_ranks"], device="cpu")
+    lcc = eng.lcc
+    state, _, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
+    tv, arow, acol, _ = eng._host_state(state)
+    host, _, _ = eng._compact_call(tv, arow, acol, eng.pattern.diameter - 1, None)
+    assert isinstance(host, _HostState) and len(host.arow) > 0
+    tv0, marks0 = host.tv.copy(), host.marks.copy()
+    tv1, arow1, acol1, _ = eng._host_state(host)
+    assert np.array_equal(tv1, tv0) and arow1 is host.arow and acol1 is host.acol
+    tv1[np.flatnonzero(tv1)[::2]] = 0
+    eid = int(np.searchsorted(eng._edge_keys_cached(),
+                              np.uint64(arow1[0]) * np.uint64(len(tv1)) + np.uint64(acol1[0])))
+    upd = eng._with_updates(host, tv1, [eid, eid])
+    assert np.array_equal(host.tv, tv0) and np.array_equal(host.marks, marks0)
+    assert np.array_equal(upd.tv, tv1) and upd.tv is not tv1 and upd.tv.dtype == np.uint32
+    assert upd.marks.tolist() == [eid]
+    assert eng._with_updates(upd, tv1, []).marks is upd.marks

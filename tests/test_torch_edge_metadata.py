@@ -28,7 +28,7 @@ from fuzzypatternmatching_tpu.graph.csr import from_edges as jax_from_edges
 from fuzzypatternmatching_tpu.pattern import builtin as jax_builtin
 from fuzzypatternmatching_tpu_torch import golden
 from fuzzypatternmatching_tpu_torch.cli import run_pattern_matching
-from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
+from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine, _HostState
 from fuzzypatternmatching_tpu_torch.engine.lcc_bucketed import BucketedLccEngine
 from fuzzypatternmatching_tpu_torch.engine.nlcc import AliveCsr, run_nem, run_tds
 from fuzzypatternmatching_tpu_torch.io.results import write_results
@@ -272,41 +272,45 @@ def test_cli_edge_metadata_conflict_and_unmatched(tmp_path, capsys):
         run_pattern_matching.main(base[:-1] + ["--mmap"])
 
 
-# ------------------------------------------------- lazy bucketed state
+# ------------------------------------------------- the driver's host state
 
 
 def test_lazy_bucketed_state_roundtrip():
-    """Lazy host-side state of a metadata-mode engine: tv_host, alive_pairs
-    and state_to_global answer from host data, with_updates keeps it lazy,
-    and a full lcc_call materializes it to the eager construction's
-    result."""
+    """The compact continuation's host state in metadata mode: the driver
+    reads it, and the NLCC's pair metadata, as it reads the device state
+    it stands for; with_updates merges its marks on the host; made a
+    device state (``_state_from_pairs``), a full lcc_call gives the eager
+    state's rows, tv and alive pairs."""
     src, dst = undirected([(0, 1), (1, 2), (2, 3), (3, 0), (1, 3)])
     gj = jax_from_edges(src, dst, num_vertices=4)
     g = port_graph(gj)
     labels = np.array([1, 2, 1, 2], dtype=np.uint64)
-    pat = port_pattern(make_pattern([(0, 1), (1, 0)], [1, 2], diameter=2))
-    allow = np.array([[2, 1], [0, 0]], dtype=np.uint32)  # code 0 = any edge
-    eng = BucketedLccEngine(
-        g, labels, pat, device="cpu",
-        edge_meta=(allow, np.zeros(g.num_edges, dtype=np.int64)),
-    )
+    pat = port_pattern(meta_pattern([(0, 1), (1, 0)], [1, 2], [5, 5], diameter=2))
+    # 6 on the edges whose ends sum to an odd id: no pattern edge allows it
+    ed = np.where((g.edge_row + g.cols) % 2 == 0, 5, 6).astype(np.int64)
+    drv = MatchEngine(g, labels, pat, [], edge_data=ed, device="cpu")
+    eng = drv.lcc
+    assert drv._meta is not None and eng.meta_allow is not None
     eids = np.arange(g.num_edges, dtype=np.int64)[::2]
     tv = pat.label_match_bitset(labels).astype(np.uint32)
-    lazy = eng.state_from_edge_ids(tv, eids, lazy=True)
+    host = _HostState(tv, g.edge_row[eids].astype(np.int64), g.cols[eids].astype(np.int64),
+                      np.empty(0, dtype=np.int64))
     eager = eng.state_from_edge_ids(tv, eids)
-    assert lazy.alive is None
-    assert (eng.tv_host(lazy) == eng.tv_host(eager)).all()
-    for a, b in zip(eng.alive_pairs(lazy), eng.alive_pairs(eager)):
+    for a, b in zip(drv._host_state(host)[:3], drv._host_state(eager)[:3]):
         assert (a == b).all()
-    for a, b in zip(eng.state_to_global(lazy), eng.state_to_global(eager)):
-        assert (a == b).all()
+    csr_h = drv._alive_csr(host.arow, host.acol, None, tv, host)
+    csr_e = drv._alive_csr(host.arow, host.acol, None, tv, eager)
+    assert (csr_h.meta == csr_e.meta).all() and (csr_h.col == csr_e.col).all()
+    assert set(csr_h.meta.tolist()) == {0, 1}
     tv2 = tv.copy()
     tv2[3] = 0
-    lazy2 = eng.with_updates(lazy, tv2, [int(eids[0])])
-    assert lazy2.alive is None
-    assert int(eids[0]) in lazy2.lazy_flag_ids.tolist()
-    eager2 = eng.with_updates(eager, tv2, [int(eids[0])])
-    sl, rl, dl = eng.lcc_call(lazy2, False, n_steps=2)
+    host2 = drv._with_updates(host, tv2, [int(eids[0])])
+    assert isinstance(host2, _HostState) and host2.marks.tolist() == [int(eids[0])]
+    eager2 = drv._with_updates(eager, tv2, [int(eids[0])])
+    dev = drv._state_from_pairs(host2.tv, host2.arow, host2.acol, host2.marks)
+    for a, b in ((dev.tv, eager2.tv), (dev.alive, eager2.alive), (dev.tp_flag, eager2.tp_flag)):
+        assert (a == b).all()
+    sl, rl, dl = eng.lcc_call(dev, False, n_steps=2)
     se, re, de = eng.lcc_call(eager2, False, n_steps=2)
     assert [r[:3] for r in rl] == [r[:3] for r in re] and dl == de
     assert (sl.tv == se.tv).all()

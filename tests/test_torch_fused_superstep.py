@@ -187,7 +187,7 @@ def test_compact_sub_engines_match_jax(tlb, monkeypatch):
     def recording(self, state, global_init_step, n_steps=None):
         if self.graph is not g:  # a sub-engine of _compact_call
             tv, alive = self.state_to_global(state)
-            flag = self._materialize(state).tp_flag.numpy()[self._edge_to_slot]
+            flag = state.tp_flag.numpy()[self._edge_to_slot]
             out = real(self, state, global_init_step, n_steps)
             calls.append((self, (tv, alive, flag), global_init_step, n_steps, out))
             return out

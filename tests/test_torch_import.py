@@ -52,7 +52,6 @@ def test_every_port_module_is_listed():
         "fuzzypatternmatching_tpu_torch.engine.lcc",
         "fuzzypatternmatching_tpu_torch.engine.driver",
         "fuzzypatternmatching_tpu_torch.engine.nlcc",
-        "fuzzypatternmatching_tpu_torch.engine.lazy_state",
         "fuzzypatternmatching_tpu_torch.engine.result",
         "fuzzypatternmatching_tpu_torch.cli.run_pattern_matching",
         "fuzzypatternmatching_tpu_torch.generators.rmat",

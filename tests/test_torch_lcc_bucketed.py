@@ -23,6 +23,7 @@ from fuzzypatternmatching_tpu.pattern.pattern_graph import (
 from fuzzypatternmatching_tpu_torch.engine.lcc_bucketed import (
     BucketedLccEngine,
 )
+from fuzzypatternmatching_tpu_torch.engine.result import stats_rows
 from fuzzypatternmatching_tpu_torch.graph.csr import Graph, from_edges
 from fuzzypatternmatching_tpu_torch.pattern.pattern_graph import (
     PatternGraph,
@@ -174,8 +175,9 @@ def test_continuation_from_jax_state(graph, tree, jax_mode):
 
 
 def test_lazy_state_and_updates_match_jax(graph, tree):
-    """state_from_edge_ids(lazy=True) + with_updates (tv change and TP
-    marks) on both engines, then a full call from the lazy state."""
+    """state_from_edge_ids + with_updates (tv change and TP marks): the JAX
+    engine's lazy and eager states against the port's one device state,
+    then a full call from each."""
     jx, pt = _engines(graph, tree, num_ranks=2)
     st_j, _, _ = jx.lcc_call(jx.init_state(), True)
     tv, edge_alive = jx.state_to_global(st_j)
@@ -185,17 +187,36 @@ def test_lazy_state_and_updates_match_jax(graph, tree):
     tv[np.nonzero(tv)[0][::5]] = 0  # sources deleted by an NLCC pass
     for lazy in (True, False):
         sj = jx.state_from_edge_ids(tv, eids, lazy=lazy)
-        stt = pt.state_from_edge_ids(tv, eids, lazy=lazy)
+        stt = pt.state_from_edge_ids(tv, eids)
         for a, b in zip(jx.alive_pairs(sj), pt.alive_pairs(stt)):
             assert np.array_equal(a, b)
         sj = jx.with_updates(sj, tv, marks)
         stt = pt.with_updates(stt, tv, marks)
-        assert (stt.alive is None) == lazy
         sj2, rows_j, died_j = jx.lcc_call(sj, False)
         st2, rows_t, died_t = pt.lcc_call(stt, False)
         _same_rows(rows_j, rows_t)
         assert died_j == died_t
         _same_state(jx, sj2, pt, st2)
+
+
+@pytest.mark.parametrize("ranks", [1, 4])
+def test_stats_rows_per_superstep(ranks):
+    """``stats_rows``, which every LCC engine's lcc_call uses: each row's
+    per-rank counts are copies of its slices and sum to its totals; the
+    died flag is any superstep's last column."""
+    rng = np.random.default_rng(ranks)
+    st = rng.integers(0, 50, size=(3, 3 * ranks + 1), dtype=np.int64)
+    st[:, -1] = [0, 1, 0]
+    rows, died = stats_rows(st, ranks)
+    assert died is True and stats_rows(st[[0, 2]], ranks)[1] is False
+    assert len(rows) == 3
+    for row, (av, ae, msgs, per) in zip(st.copy(), rows):
+        for k, part in enumerate(("av", "ae", "msg")):
+            assert per[part].tolist() == row[k * ranks:(k + 1) * ranks].tolist()
+        assert (av, ae, msgs) == tuple(int(row[k * ranks:(k + 1) * ranks].sum()) for k in range(3))
+        per["av"][:] = -1
+    assert (st >= 0).all()
+    assert stats_rows(np.zeros((0, 3 * ranks + 1), np.int64), ranks) == ([], False)
 
 
 def test_fuzzy_optional_edges_match_jax(graph, tmp_path):

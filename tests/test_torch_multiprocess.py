@@ -162,7 +162,6 @@ def run_lcc(mesh, g, labels, pattern, mode):
         ("alive_edge_ids", lambda: eng.alive_edge_ids(st)),
         ("state_to_global", lambda: eng.state_to_global(st)),
         ("with_updates", lambda: eng.with_updates(st, zeros, [0])),
-        ("lazy state", lambda: eng.state_from_edge_ids(zeros, np.array([0]), lazy=True)),
     ):
         try:
             read()
@@ -374,7 +373,7 @@ def test_lcc_call_across_processes_equals_one_process(lcc_run, lcc_one_process, 
             assert alive.dtype == alive_w.dtype and alive.tobytes() == alive_w.tobytes()
             seen.append(r)
         assert got["refused"] == ["tv_host", "alive_pairs", "alive_edge_ids",
-                                  "state_to_global", "with_updates", "lazy state"]
+                                  "state_to_global", "with_updates"]
     assert sorted(seen) == [0, 1, 2, 3]
 
 

@@ -24,6 +24,7 @@ from fuzzypatternmatching_tpu.graph.csr import degree_labels
 from fuzzypatternmatching_tpu.graph.csr import from_edges as jax_from_edges
 from fuzzypatternmatching_tpu.parallel.sharded import ShardedLccEngine as JaxSharded
 from fuzzypatternmatching_tpu.pattern import builtin as jax_builtin
+from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine, _HostState
 from fuzzypatternmatching_tpu_torch.parallel.mesh import Mesh
 from fuzzypatternmatching_tpu_torch.parallel.sharded import ShardedLccEngine
 from fuzzypatternmatching_tpu_torch.utils.dist import build_mesh
@@ -190,17 +191,22 @@ def test_per_device_elems_shrinks_with_n(s10):
 
 
 def test_lazy_state_and_updates_roundtrip(s10):
-    """Lazy states (host edge ids) and with_updates marks give the same
-    continuation as the device states they stand for."""
+    """The driver's host state (the alive pairs) with with_updates marks,
+    made a mesh state (``_state_from_pairs``), gives the same continuation
+    as the device state it stands for."""
     gj, labels, pj, _ = s10
-    eng = ShardedLccEngine(port_graph(gj), labels, port_pattern(pj), mesh=cpu_mesh(3))
+    drv = MatchEngine(port_graph(gj), labels, port_pattern(pj), [], mesh=cpu_mesh(3),
+                      nlcc_mode="host")
+    eng = drv.lcc
     st, _, _ = eng.lcc_call(eng.init_state(), True, n_steps=2)
     tv = eng.tv_host(st).copy()
     ids = eng.alive_edge_ids(st)
     marks = list(ids[::7])
-    lazy = eng.with_updates(eng.state_from_edge_ids(tv, ids, lazy=True), tv, marks)
-    dense = eng.with_updates(eng.state_from_edge_ids(tv, ids), tv, marks)
-    assert lazy.alive is None and dense.alive is not None
+    arow, acol = eng.alive_pairs(st)
+    host = drv._with_updates(_HostState(tv, arow, acol, np.empty(0, np.int64)), tv, marks)
+    assert isinstance(host, _HostState) and np.array_equal(host.marks, np.unique(marks))
+    dense = drv._with_updates(eng.state_from_edge_ids(tv, ids), tv, marks)
+    lazy = drv._state_from_pairs(host.tv, host.arow, host.acol, host.marks)
     out = [eng.lcc_call(s, False) for s in (lazy, dense)]
     assert [r[:3] for r in out[0][1]] == [r[:3] for r in out[1][1]]
     assert np.array_equal(eng.tv_host(out[0][0]), eng.tv_host(out[1][0]))

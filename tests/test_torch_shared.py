@@ -2,7 +2,7 @@
 against their originals: on the same seeded inputs each copy gives what the
 original gives (the R-MAT stream and its scramble, the CSR, the pattern
 loaders, the NLCC/TDS walks, the result trees, the graph DB reader, the
-label and lazy-state helpers, the oracle, the synthetic streams).
+label helpers, the TP-mark merge of the driver's host state, the oracle, the synthetic streams).
 Everything compared is an integer array, count or file: exact equality."""
 
 import json
@@ -27,8 +27,8 @@ from fuzzypatternmatching_tpu.pattern import nonlocal_constraint as jax_nlc
 from fuzzypatternmatching_tpu.pattern import pattern_graph as jax_pg
 from fuzzypatternmatching_tpu.utils import hashing as jax_hashing
 from fuzzypatternmatching_tpu_torch import golden, native
-from fuzzypatternmatching_tpu_torch.engine import lazy_state, nlcc, oracle
-from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine
+from fuzzypatternmatching_tpu_torch.engine import nlcc, oracle
+from fuzzypatternmatching_tpu_torch.engine.driver import MatchEngine, _HostState
 from fuzzypatternmatching_tpu_torch.engine.lcc_bucketed import BucketedLccEngine
 from fuzzypatternmatching_tpu_torch.generators import rmat, synthetic
 from fuzzypatternmatching_tpu_torch.graph import csr, storage
@@ -340,14 +340,17 @@ def test_resolve_labels_equals_original(tmp_path):
 
 
 def test_lazy_state_helpers_equal_original():
-    ids = np.array([9, 3, 3, 7, 0])
-    assert np.array_equal(lazy_state.normalized_edge_ids(ids), jax_lazy.normalized_edge_ids(ids))
-    assert lazy_state.normalized_flag_ids(None) is None
-    assert np.array_equal(lazy_state.normalized_flag_ids(ids), jax_lazy.normalized_flag_ids(ids))
-    for prev, marks in ((None, []), (None, [4, 1]), (np.array([2, 5]), [5, 3])):
-        assert np.array_equal(
-            lazy_state.merged_flag_ids(prev, marks), jax_lazy.merged_flag_ids(prev, marks)
-        )
+    """The driver's host state merges TP marks as the JAX lazy state does
+    (``merged_flag_ids``); the port holds no marks as an empty array."""
+    empty = np.empty(0, dtype=np.int64)
+    tv = np.array([3, 0, 1], dtype=np.uint32)
+    for prev, marks in (
+        (None, []), (None, [4, 1]), (np.array([2, 5]), [5, 3]), (np.array([2, 5]), []),
+    ):
+        host = _HostState(tv, empty, empty, empty if prev is None else prev)
+        got = host.with_updates(tv, marks).marks
+        want = jax_lazy.merged_flag_ids(prev, marks)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_match_engine_on_jax_graph_is_refused(golden_meta):

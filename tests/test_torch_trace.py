@@ -1,5 +1,7 @@
 """The port's search tracer (``utils/trace.py``) on the CPU.
 
+* Download: only the first LCC phase of a search opens
+  ``fpm.lcc.download``; later phases read the driver's host state.
 * Off: with no profiler recording, ``MatchEngine.run`` keeps no span or
   counter and calls ``torch.profiler.record_function`` not once.
 * On, under ``torch.profiler.profile``: one ``fpm.search`` root, every span
@@ -183,6 +185,21 @@ def test_compact_builds_first_search_only(tree13, cycle13, corpus, hits):
     assert second.counters["compact_builds"] == 0
     assert first.counters["compact_subset_hits"] == second.counters["compact_subset_hits"] == hits
     assert [s.name for s in first.spans] == [s.name for s in second.spans]
+
+
+@pytest.mark.parametrize("corpus,phases", [("tree", 1), ("cycle", 3)])
+def test_download_only_from_a_device_state(tree13, cycle13, corpus, phases):
+    """Only the first LCC phase, which starts from the init superstep's
+    device state, downloads tv and the alive pairs; every later phase reads
+    the compact route's host state in place."""
+    e = engine(tree13 if corpus == "tree" else cycle13)
+    with profiled():
+        r = e.run()
+    spans = r.spans
+    lcc = [i for i, s in enumerate(spans) if s.name == "fpm.lcc"]
+    downloads = [s for s in spans if s.name == "fpm.lcc.download"]
+    assert len(lcc) == phases == sum(s.name == "fpm.lcc.compact" for s in spans)
+    assert len(downloads) == 1 and downloads[0].parent == lcc[0]
 
 
 @pytest.mark.parametrize("mode", ["host", "device"])
