@@ -12,7 +12,8 @@ arrays, or on a mesh of shards (``lcc_engine="sharded"`` or ``mesh=``:
 ``parallel/sharded.py``, with the compact continuation on the mesh's first
 device). The compact continuation keeps its state between LCC phases on
 the host, in the driver (``_HostState``: tv, the alive pairs and the TP
-marks); the engines hold only device states. Each NLCC constraint runs on
+marks), beside the sub-engine's device state that the search's next phase
+starts from; the engines hold only device states. Each NLCC constraint runs on
 the device engine (``engine/nlcc_device.py``; on a mesh
 ``parallel/nlcc_sharded.py``) or the host engine (``engine/nlcc.py``, the
 port's copy of the JAX package's), placed by ``nlcc_mode``; the placement
@@ -60,7 +61,7 @@ from ..pattern.nonlocal_constraint import NonLocalConstraint
 from ..pattern.pattern_graph import PatternGraph
 from ..utils import trace
 from .lcc import LccEngine
-from .lcc_bucketed import BucketedLccEngine
+from .lcc_bucketed import BucketedLccEngine, BucketedState
 from .nlcc import (
     AliveCsr,
     ForwardedSets,
@@ -84,20 +85,29 @@ class _HostState:
     tv (uint32 [V]), the alive (row, col) pairs in CSR row-major order and
     the TP success marks (CSR edge ids), all int64. The sub-engine numbers
     vertices as the graph does, so its output is this record as it comes;
-    it becomes a full-engine state only in ``_lcc_calls``."""
+    it becomes a full-engine state only in ``_lcc_calls``. ``sub`` and
+    ``sub_state`` are the sub-engine it came out of and that engine's
+    output state, whose alive plane on the device holds exactly these
+    pairs: the search's next phase starts from that plane
+    (``_compact_call``). None in a state made any other way."""
 
     tv: np.ndarray
     arow: np.ndarray
     acol: np.ndarray
     marks: np.ndarray
+    sub: BucketedLccEngine | None = None
+    sub_state: BucketedState | None = None
 
     def with_updates(self, tv: np.ndarray, tp_marks) -> _HostState:
         """New tv, and ``tp_marks`` merged into the marks (an empty list
-        leaves them as they are)."""
+        leaves them as they are); the alive set and its plane stay."""
         marks = self.marks
         if tp_marks:
             marks = np.union1d(marks, np.asarray(list(tp_marks), dtype=np.int64))
-        return _HostState(np.asarray(tv).astype(np.uint32), self.arow, self.acol, marks)
+        return _HostState(
+            np.asarray(tv).astype(np.uint32), self.arow, self.acol, marks,
+            self.sub, self.sub_state,
+        )
 
 
 class MatchEngine:
@@ -323,7 +333,8 @@ class MatchEngine:
             else:
                 with trace.span("fpm.lcc.compact"):
                     state, r2, d2 = self._compact_call(
-                        tv, arow, acol, steps_left, tp_mark_eids
+                        tv, arow, acol, steps_left, tp_mark_eids,
+                        carried=state if isinstance(state, _HostState) else None,
                     )
                 rows_all += r2
                 died_any = died_any or d2
@@ -331,24 +342,32 @@ class MatchEngine:
         self._emit_lp_rows(rows_all, dt, itr, result)
         return state, died_any
 
-    def _compact_call(self, tv, arow, acol, steps_left, tp_mark_eids):
+    def _compact_call(self, tv, arow, acol, steps_left, tp_mark_eids, carried=None):
         """``steps_left`` supersteps on the SYMMETRIC CLOSURE of the alive
         set, or on a cached closure that contains it: a live sender edge
         (u,v) delivers into receiver slot (v,u) even when that slot itself is
         dead (its message still feeds tn), so dead-but-reachable slots exist
         in the subgraph with alive=False. A slot of a larger closure outside
-        this one is dead both ways: it sends, receives and keeps nothing."""
+        this one is dead both ways: it sends, receives and keeps nothing.
+
+        ``carried``, the host state that the search's previous phase
+        returned: where its sub-engine is still the cached one, the phase
+        starts from that engine's alive plane on the device, so it neither
+        looks the closure up nor builds the slot planes on the host."""
+        cache = self._sub_cache
+        carry = carried is not None and cache is not None and carried.sub is cache[4]
         with trace.span("fpm.lcc.compact.closure"):
-            union, alive_sub_eids, sub = self._closure(arow, acol)
+            if carry:
+                union, sub = cache[2], carried.sub
+            else:
+                union, alive_sub_eids, sub = self._closure(arow, acol)
         with trace.span("fpm.lcc.compact.call"):
-            flag_ids = None
-            if tp_mark_eids:
-                # marks on dead slots are no-ops in the full engine (own_alive
-                # gates the flag), so only union hits carry over
-                mk = self._edge_keys_cached()[np.asarray(tp_mark_eids, dtype=np.int64)]
-                mp = np.minimum(np.searchsorted(union, mk), len(union) - 1)
-                flag_ids = mp[union[mp] == mk]
-            sub_state = sub.state_from_edge_ids(tv, alive_sub_eids, flag_ids=flag_ids)
+            flag_ids = self._marks_in_closure(union, tp_mark_eids)
+            if carry:
+                trace.count("compact_state_carries")
+                sub_state = sub.state_on_alive(tv, carried.sub_state.alive, flag_ids)
+            else:
+                sub_state = sub.state_from_edge_ids(tv, alive_sub_eids, flag_ids=flag_ids)
             sub_state, rows, died = sub.lcc_call(sub_state, False, n_steps=steps_left)
         with trace.span("fpm.lcc.compact.back"):
             # a live vertex with no alive incident edge: the full engine
@@ -364,17 +383,32 @@ class MatchEngine:
             # the sub-engine starts alive only on the input pairs and alive
             # only shrinks, so its alive pairs are edges of the graph
             a2r, a2c = sub.alive_pairs(sub_state)
-            host = _HostState(sub.tv_host(sub_state), a2r, a2c, np.empty(0, np.int64))
+            host = _HostState(
+                sub.tv_host(sub_state), a2r, a2c, np.empty(0, np.int64), sub, sub_state
+            )
             return host, rows, died
+
+    def _marks_in_closure(self, union, tp_mark_eids):
+        """The TP marks (CSR edge ids) as edge ids of the closure whose keys
+        are ``union``; None where there are none. Marks on dead slots are
+        no-ops in the full engine (own_alive gates the flag), so only union
+        hits carry over."""
+        if not tp_mark_eids:
+            return None
+        mk = self._edge_keys_cached()[np.asarray(tp_mark_eids, dtype=np.int64)]
+        mp = np.minimum(np.searchsorted(union, mk), len(union) - 1)
+        return mp[union[mp] == mk]
 
     def _closure(self, arow, acol):
         """(union, alive_sub_eids, sub): the keys of a symmetric closure that
         contains the alive set, the alive set's edge ids in it and the engine
         over it. From ``_sub_cache`` when the alive set is the cached one or
         lies inside its closure (the alive set only shrinks within a search,
-        so a later LCC phase's lies inside the first's); the entry then keeps
-        the larger closure, which the next search's first phase hits
-        exactly. Else built, and cached."""
+        so a later LCC phase's lies inside the first's: such a phase skips
+        this lookup where it carries the cached engine's device state,
+        ``_compact_call``); the entry then keeps the larger closure, which
+        the next search's first phase hits exactly. Else built, and
+        cached."""
         vv = np.uint64(self.graph.num_vertices)
         keys = arow.astype(np.uint64) * vv + acol.astype(np.uint64)
         fp = (len(keys), int(keys[0]), int(keys[-1]))

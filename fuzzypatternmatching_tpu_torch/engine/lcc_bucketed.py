@@ -100,7 +100,8 @@ class _DeviceBucket:
 class BucketedState:
     """The engine's device arrays and their host memos. Between the compact
     continuation's phases the driver holds the state on the host itself
-    (``engine/driver.py::_HostState``)."""
+    (``engine/driver.py::_HostState``), with the sub-engine's output state
+    beside it for the search's next phase."""
 
     tv: torch.Tensor  # int32 [V] on the engine's device
     alive: torch.Tensor  # bool [S+1] (last slot always dead)
@@ -539,6 +540,23 @@ class BucketedLccEngine:
             alive=self._slots_to_device(self._edge_to_slot[eids]),
             tp_flag=self._slots_to_device(self._edge_to_slot[fids]),
             tv_np=tv32,
+        )
+
+    def state_on_alive(
+        self, tv: np.ndarray, alive: torch.Tensor, flag_ids=None,
+    ) -> BucketedState:
+        """State over the device alive plane ``alive`` as it is (another
+        state's: no superstep writes its input in place), with tv uploaded
+        and TP success marks on the edge ids ``flag_ids`` alone, set on a
+        fresh plane: what ``state_from_edge_ids`` gives for the plane's
+        alive edges."""
+        tv32 = np.asarray(tv).astype(np.uint32)
+        flag = torch.zeros(self.num_slots + 1, dtype=torch.bool, device=self.device)
+        if flag_ids is not None and len(flag_ids):
+            slots = self._edge_to_slot[np.asarray(flag_ids, dtype=np.int64)]
+            flag[to_device(slots, self.device)] = True
+        return BucketedState(
+            tv=self._tv_to_device(tv32), alive=alive, tp_flag=flag, tv_np=tv32,
         )
 
     def with_updates(self, state: BucketedState, tv: np.ndarray, tp_marks):

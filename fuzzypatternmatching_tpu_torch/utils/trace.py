@@ -33,7 +33,9 @@ import torch
 # whatever the device, so a CPU run counts what a card's would copy),
 # compact-closure builds (misses of MatchEngine._sub_cache), the LCC
 # phases that cache served with the closure of another alive set, one
-# that contains theirs (``compact_subset_hits``), dense V + 1 row
+# that contains theirs (``compact_subset_hits``), the LCC phases that
+# started from the previous phase's sub-engine state on the device, with
+# no closure lookup (``compact_state_carries``), dense V + 1 row
 # pointers of the NLCC's AliveCsr built (engine/nlcc.py), the constraint
 # runs MatchEngine placed on the device NLCC, and the lanes (token, alive
 # neighbour) that DeviceNlcc's expand_frontier calls took in
@@ -43,7 +45,8 @@ import torch
 # that its sender-side rules drop
 COUNTERS = (
     "h2d_bytes", "d2h_bytes", "compact_builds", "compact_subset_hits",
-    "nlcc_dense_ptr_builds", "nlcc_device_walks", "nlcc_device_lanes",
+    "compact_state_carries", "nlcc_dense_ptr_builds", "nlcc_device_walks",
+    "nlcc_device_lanes",
 )
 
 

@@ -1,16 +1,20 @@
 """The compact path's closure cache (``MatchEngine._closure``) on the CPU.
 
 An LCC phase's alive set only shrinks within a search, so every later
-phase's alive set lies inside the closure the first phase built. The cache
-serves such a set from that closure (counter ``compact_subset_hits``) and
-keeps it, so a rerun's first phase hits it exactly and builds nothing
-(counter ``compact_builds``). The slots of the larger closure outside the
-alive set's own are dead both ways, so every result equals a full-plane
-engine's (``compact=False``), the committed golden tree and a fresh build's:
+phase's alive set lies inside the closure the first phase built. A later
+phase starts from the previous phase's sub-engine state on the device
+(counter ``compact_state_carries``, ``tests/test_torch_compact_carry.py``);
+a host state that carries none is served from that closure by the subset
+test (counter ``compact_subset_hits``). The cache keeps the closure, so a
+rerun's first phase hits it exactly and builds nothing (counter
+``compact_builds``). The slots of the larger closure outside the alive
+set's own are dead both ways, so every result equals a full-plane engine's
+(``compact=False``), the committed golden tree and a fresh build's:
 
 * the triangle (cycle_s13: three LCC phases a search) with every NLCC
   placement, counting, edge metadata and on a two-shard mesh, searched
-  twice on one engine: 1 build and 2 subset hits, then 0 and 2;
+  twice on one engine: 1 build, no subset hit and 2 carries, then 0, 0
+  and 2;
 * a live vertex that touches no alive pair but has a row in the cached
   closure: the larger engine kills it and raises ``died``, as the full
   engine does; a fresh build of the smaller closure has no row for it,
@@ -76,7 +80,8 @@ def pair_keys(arow, acol, v):
 
 
 def reuse_counts(r):
-    return r.counters["compact_builds"], r.counters["compact_subset_hits"]
+    return (r.counters["compact_builds"], r.counters["compact_subset_hits"],
+            r.counters["compact_state_carries"])
 
 
 def assert_golden(r, meta, labels, pattern, constraints, tmp_path):
@@ -101,8 +106,8 @@ def test_cycle_reruns_reuse_the_closure(golden_meta, cycle13, kw, tmp_path):
     nr = golden_meta["num_ranks"]
     eng = MatchEngine(*cycle13, num_ranks=nr, device="cpu", **kw)
     first, second = twice(eng)
-    assert reuse_counts(first) == (1, 2)
-    assert reuse_counts(second) == (0, 2)
+    assert reuse_counts(first) == (1, 0, 2)
+    assert reuse_counts(second) == (0, 0, 2)
     full = MatchEngine(*cycle13, num_ranks=nr, compact=False, device="cpu", **kw).run()
     assert plain(first) == plain(second) == plain(full)
     assert_golden(second, golden_meta, *cycle13[1:], tmp_path)
@@ -128,8 +133,8 @@ def test_edge_metadata_reruns_reuse_the_closure(golden_meta, cycle13, tmp_path):
                       device="cpu")
     assert eng._meta is not None
     first, second = twice(eng)
-    assert reuse_counts(first) == (1, 2)
-    assert reuse_counts(second) == (0, 2)
+    assert reuse_counts(first) == (1, 0, 2)
+    assert reuse_counts(second) == (0, 0, 2)
     full = MatchEngine(g, labels, pattern, constraints, num_ranks=nr, edge_data=ed,
                        compact=False, device="cpu").run()
     no_meta = MatchEngine(*cycle13, num_ranks=nr, device="cpu").run()
@@ -143,8 +148,8 @@ def test_mesh_compact_reruns_reuse_the_closure(golden_meta, cycle13):
     kw = dict(num_ranks=nr, lcc_engine="sharded", nlcc_mode="device")
     eng = MatchEngine(*cycle13, mesh=build_mesh(shards=2, device="cpu"), **kw)
     first, second = twice(eng)
-    assert reuse_counts(first) == (1, 2)
-    assert reuse_counts(second) == (0, 2)
+    assert reuse_counts(first) == (1, 0, 2)
+    assert reuse_counts(second) == (0, 0, 2)
     full = MatchEngine(*cycle13, mesh=build_mesh(shards=2, device="cpu"),
                        compact=False, **kw).run()
     assert plain(first) == plain(second) == plain(full)

@@ -7,7 +7,8 @@
 * On, under ``torch.profiler.profile``: one ``fpm.search`` root, every span
   inside its parent, only the names the driver documents; the compact
   closure built by the first search on an engine and not by the second,
-  and the cycle's later LCC phases served from it in both;
+  and the cycle's later LCC phases started from the previous phase's
+  device state in both, with no closure lookup;
   the walk span named by the constraint's placement; the device walk's
   own spans inside each device walk and nowhere else, and its counters
   (the walks placed on the device, the lanes its expansions took in,
@@ -174,16 +175,19 @@ def test_span_tree(tree13, cycle13, corpus, compact, mode):
     assert trace._current.get() is None
 
 
-@pytest.mark.parametrize("corpus,hits", [("tree", 0), ("cycle", 2)])
-def test_compact_builds_first_search_only(tree13, cycle13, corpus, hits):
+@pytest.mark.parametrize("corpus,carries", [("tree", 0), ("cycle", 2)])
+def test_compact_builds_first_search_only(tree13, cycle13, corpus, carries):
     """The first LCC phase builds the closure; the cycle's later phases,
-    whose alive sets lie inside it, are served from it."""
+    whose alive sets lie inside it, start from the previous phase's state
+    on the device and look no closure up."""
     e = engine(tree13 if corpus == "tree" else cycle13)
     with profiled():
         first, second = e.run(), e.run()
     assert first.counters["compact_builds"] == 1
     assert second.counters["compact_builds"] == 0
-    assert first.counters["compact_subset_hits"] == second.counters["compact_subset_hits"] == hits
+    assert first.counters["compact_subset_hits"] == second.counters["compact_subset_hits"] == 0
+    assert (first.counters["compact_state_carries"]
+            == second.counters["compact_state_carries"] == carries)
     assert [s.name for s in first.spans] == [s.name for s in second.spans]
 
 
