@@ -66,6 +66,7 @@ from ..ops.lcc_superstep import (
     row_or,
 )
 from ..pattern.pattern_graph import PatternGraph
+from ..utils import trace
 from ..utils.trace import to_device, to_host
 from .result import stats_rows
 
@@ -252,6 +253,8 @@ class BucketedLccEngine:
             for j, cl in enumerate(class_labels):
                 class_pad[:v][lab == cl] = j + 1
             slot_cls = [class_pad[b.adj] for b in self.buckets]
+            # the class-count reductions of a bucket's ``_count_mask``
+            self._count_passes = int((self.required > 0).sum())
 
         # --- device planes -------------------------------------------------
         dev = self.device
@@ -312,8 +315,10 @@ class BucketedLccEngine:
         """Counting mode: bit i set where candidate i heard at least
         ``required[i, j]`` accepted senders of each label class j.
         ``acc[i]`` is the bool [n, w] plane of slots accepted toward i;
-        counts are row sums, summed per segment for split hubs."""
+        counts are row sums, summed per segment for split hubs: one
+        reduction (a ``lcc_count_passes``) per (i, j) with a requirement."""
         split = n_seg != d.adj.shape[0]
+        trace.count("lcc_count_passes", self._count_passes)
         keep = torch.zeros(n_seg, dtype=torch.int32, device=d.adj.device)
         of_class = {
             j: d.cls == j + 1 for j in np.nonzero(self.required.any(axis=0))[0]
@@ -338,14 +343,24 @@ class BucketedLccEngine:
         stats) with stats = [av per rank | ae per rank | msg per rank |
         died] as an int64 device tensor. The default mode is one fused
         superstep (ops/lcc_fused.py); counting and edge metadata run per
-        bucket below."""
-        if not self.counting and self.meta_allow is None:
-            if init:
-                return init_superstep(self._planes, tv, self._tmpl)
-            alive_rev = rev_alive_lookup(self._rev_flat, alive_table(alive))
-            return continuation_superstep(
-                self._planes, tv, alive, tp_flag, alive_rev, self._tmpl
-            )
+        bucket (``_per_bucket``), a counting superstep in one
+        ``fpm.lcc.count`` span."""
+        if self.counting:
+            trace.count("lcc_count_supersteps")
+            with trace.span("fpm.lcc.count"):
+                return self._per_bucket(tv, alive, tp_flag, init=init)
+        if self.meta_allow is not None:
+            return self._per_bucket(tv, alive, tp_flag, init=init)
+        if init:
+            return init_superstep(self._planes, tv, self._tmpl)
+        alive_rev = rev_alive_lookup(self._rev_flat, alive_table(alive))
+        return continuation_superstep(
+            self._planes, tv, alive, tp_flag, alive_rev, self._tmpl
+        )
+
+    def _per_bucket(self, tv, alive, tp_flag, *, init: bool):
+        """``_superstep`` of the counting and edge-metadata modes: plain
+        torch per bucket, ``gather_accept_or`` in a counting continuation."""
         dev = self.device
         r = self.num_ranks
         meta = self.meta_allow is not None

@@ -42,11 +42,15 @@ import torch
 # (engine/nlcc_device.py). The lanes are the walks' messages plus the
 # lanes no message is counted for: in a nem hop after the first the lane
 # back to the token's parent, in a TDS hop after the first the lanes
-# that its sender-side rules drop
+# that its sender-side rules drop. Under the counting LCC
+# (engine/lcc_bucketed.py): the supersteps its per-bucket branch ran
+# (``lcc_count_supersteps``, one ``fpm.lcc.count`` span each) and the
+# per-bucket (i, j) class-count reductions its ``_count_mask`` launched
+# (``lcc_count_passes``)
 COUNTERS = (
     "h2d_bytes", "d2h_bytes", "compact_builds", "compact_subset_hits",
     "compact_state_carries", "nlcc_dense_ptr_builds", "nlcc_device_walks",
-    "nlcc_device_lanes",
+    "nlcc_device_lanes", "lcc_count_supersteps", "lcc_count_passes",
 )
 
 
