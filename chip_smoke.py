@@ -19,7 +19,8 @@ NVIDIA GPU:
      launched by the search: pack_alive, rev_alive_lookup and the fused
      supersteps (init_superstep at least once, continuation_superstep at
      least 7 times, at most 2 launches of each a superstep), and
-     gather_accept_or (the counting mode's, phase 14) not at all;
+     gather_accept_or (which no engine route launches since the counting
+     mode fused its superstep too) not at all;
   6. the same search with compact=False (every superstep over all slots),
      on phase 5's engine with its compact continuation turned off;
   7. hold each kernel against its twin at the s21 shapes of a full-graph
@@ -58,8 +59,9 @@ NVIDIA GPU:
  13. one s21 cycle search (device mode) under torch.profiler, and one
      under cProfile (host time by function);
  14. the s21 tree search in counting mode (counting=True, compact
-     continuation), warm and timed: the anchors of phase 5, and launches of
-     rev_alive_lookup and gather_accept_or;
+     continuation), warm and timed: the anchors of phase 5, launches of
+     rev_alive_lookup and of both fused supersteps (their counting
+     instantiations), and none of gather_accept_or;
  15. the s21 tree search with edge metadata: every edge carries 55, the
      tree corpus's only pattern_edge_data value; the same anchors, launches
      of rev_alive_lookup and none of the walk kernels (metadata keeps every
@@ -155,7 +157,12 @@ NVIDIA GPU:
      engines, anchors asserted), and both kernels timed at the post-init
      state of the full graph by CUDA-graph replay in turns with their
      twins (the plain per-bucket superstep), eagerly, and beside their
-     bytes bounds.
+     bytes bounds. The counting instantiations the same way: seeded cases
+     after phase 3 (requirement tables of 1 to 256 pairs, counts up to 15,
+     every class present with no requirement met), and after phase 14
+     every superstep of one s21 counting search with the compact path and
+     one with compact=False held against the twin, then both timed at the
+     post-init state of phase 14's full engine.
 
 Any failure ends the run with a non-zero exit code, and so does a run
 without a CUDA device or without the rest of the repository. The last two
@@ -165,8 +172,8 @@ cycle device search for the walk kernels; largest difference from the
 twin, times and the least time the card could take; the mesh superstep's
 kernels' launches are those of the phase 22 full-plane search) and the
 result line ``{"ok": true, ...}``. gather_accept_or's launches there are
-those of the phase 14 counting search, its path since the default mode
-fused its superstep.
+0: since both the default and the counting mode fused their supersteps no
+search launches it (phase 7 holds it against its twin and times it).
 
 Usage: python3 chip_smoke.py   (from the repository root; one CUDA card)
 (``chip_smoke.py --mesh-child DIR ...`` is phase 24-25's per-process
@@ -474,7 +481,7 @@ def run_s21(g, labels, pattern, constraints, dev, compact, engine=None):
         if launches[k] == 0:
             raise AssertionError(f"{k}: no launch during the s21 search")
     # the default mode's supersteps are the fused kernels, at most 2 launches
-    # of each a superstep; gather_accept_or is the counting mode's ([14])
+    # of each a superstep; no search launches gather_accept_or
     if (launches["continuation_superstep"] < 7 or launches["gather_accept_or"]
             or max(launches[k] for k in FUSED_KERNELS) > 2 * steps):
         raise AssertionError(f"s21 compact={compact}: {steps} supersteps, launches {launches}")
@@ -973,8 +980,7 @@ def first_lcc_state(engine):
     """(AliveCsr, tv) after the search's first LCC call, as MatchEngine
     builds them for iteration 0's constraints."""
     state, _ = engine._lcc_phase(engine.lcc.init_state(), True, 0, MatchResult())
-    tv = engine.lcc.tv_host(state).copy()
-    arow, acol = engine.lcc.alive_pairs(state)
+    tv, arow, acol, _ = engine._host_state(state)  # a device or the compact route's host state
     return nlcc.AliveCsr.from_pairs(arow, acol, tv != 0, engine.graph.num_vertices), tv
 
 
@@ -1227,11 +1233,11 @@ def run_s21_modes(g, labels, pattern, constraints, dev, rows_full):
     counting, _, counting_launches, _ = mode_search(
         g, labels, pattern, constraints, dev, "[14]", "counting", counting=True
     )
-    for k in ("rev_alive_lookup", "gather_accept_or"):
+    for k in ("rev_alive_lookup", *FUSED_KERNELS):
         if counting_launches[k] == 0:
             raise AssertionError(f"{k}: no launch during the s21 counting search")
-    if any(counting_launches[k] for k in FUSED_KERNELS):
-        raise AssertionError(f"s21 counting search launched a fused superstep: "
+    if counting_launches["gather_accept_or"]:
+        raise AssertionError(f"s21 counting search launched gather_accept_or: "
                              f"{counting_launches}")
     # the tree corpus's pattern_edge_data carries 55 on every pattern edge
     # (pattern/builtin.py): every graph edge carries 55 too
@@ -2158,14 +2164,18 @@ def run_mesh_processes(g, labels, ref, cards, backend, tag):
 FUSED_WIDTHS = tuple(8 << i for i in range(11))  # the engine's widths, 8 .. 8192
 
 
-def fused_case(seed, buckets, dev, ranks=1, code8=True, k=5, density=0.6, V=20000):
+def fused_case(seed, buckets, dev, ranks=1, code8=True, k=5, density=0.6, V=20000,
+               required=None, cycle_classes=False):
     """Seeded inputs of both fused supersteps: ``SuperstepPlanes`` over
     ``buckets`` ((rows, width, split) in slot order; a split bucket's rows
     fall in runs of 1-4 rows a segment, the engine's split hubs), a random
     template of k vertices, and a state: the label tv and tv (bits below
     k, 30 % zero), alive and tp_flag (pad slot dead) and alive_rev, set
     with probability ``density``; a fifth of the slots are padding (adj V,
-    label code 0)."""
+    label code 0). With ``required`` ([k, L]) the counting rule: each
+    slot's sender class drawn from 0..L, or with ``cycle_classes`` class
+    1 + (slot mod L) (every class in every long row, none more than
+    ceil(width / L) times a row); padding class 0."""
     rng = np.random.RandomState(seed)
     n_codes = 200 if code8 else 1000
     verts = rng.permutation(V)  # every segment its own vertex
@@ -2191,12 +2201,21 @@ def fused_case(seed, buckets, dev, ranks=1, code8=True, k=5, density=0.6, V=2000
     code_tv = rng.randint(0, 1 << k, size=n_codes)
     code_tv[rng.rand(n_codes) < 0.3] = 0
     code_tv[0] = 0
-    planes = lf.build_planes(widths, rows, seg_id, seg_rows, adj, code, code_tv, V, ranks, dev)
+    cls = None
+    if required is not None:
+        n_cls = np.asarray(required).shape[1]
+        crng = np.random.RandomState(seed + 7919)
+        cls = [np.where(a == V, 0, 1 + np.arange(a.size).reshape(a.shape) % n_cls
+                        if cycle_classes else crng.randint(0, n_cls + 1, size=a.shape))
+               .astype(np.uint8) for a in adj]
+    planes = lf.build_planes(widths, rows, seg_id, seg_rows, adj, code, code_tv, V, ranks, dev,
+                             cls=cls)
     adj_all = rng.randint(1, 1 << k, size=k)
     mand = np.where(rng.rand(k) < 0.5, adj_all & (1 << rng.randint(0, k, size=k)), 0)
     opt = adj_all & ~mand & rng.randint(0, 1 << k, size=k)
     opt_min = np.where(opt != 0, rng.randint(0, 3, size=k), 0)
-    tmpl = lf.Template(*(tuple(int(x) for x in t) for t in (adj_all, mand, opt, opt_min)))
+    tmpl = lf.Template(*(tuple(int(x) for x in t) for t in (adj_all, mand, opt, opt_min)),
+                       None if required is None else tuple(map(tuple, np.asarray(required).tolist())))
 
     def tv_of():
         t = rng.randint(0, 1 << k, size=V).astype(np.int32)
@@ -2230,6 +2249,53 @@ def fused_errs(planes, tmpl, state, errs):
     torch.cuda.synchronize()
     for name, (got, want) in pairs.items():
         errs[name] = max(errs[name], max(max_err(g, r) for g, r in zip(got, want)))
+
+
+def required_table(seed, k, n_cls, pairs, top):
+    """A seeded [k, n_cls] requirement table with ``pairs`` entries in 1..top
+    (at least one of them top) and zeros elsewhere."""
+    rng = np.random.RandomState(seed)
+    req = np.zeros(k * n_cls, dtype=np.int64)
+    at = rng.choice(k * n_cls, size=pairs, replace=False)
+    req[at] = rng.randint(1, top + 1, size=pairs)
+    if pairs:
+        req[at[0]] = top
+    return req.reshape(k, n_cls)
+
+
+# the counting cases: (k, classes, requirement pairs, largest requirement)
+COUNTING_TABLES = ((7, 4, 11, 2), (16, 16, 40, 3), (3, 2, 6, 1), (16, 16, 256, 15), (1, 1, 0, 0))
+
+
+def compare_counting_small(dev, errs):
+    """Phase 27, small counting cases: the counting instantiations against
+    the twin, exactly: requirement tables of 0 to 256 pairs (1 to 16 register
+    groups) with counts up to 15 on every engine width (the widest split),
+    1, 4 and 2,000 ranks, uint8 and int32 codes; then every class present
+    in every row and every requirement 15, none met, on short rows and on
+    split hubs in a width-16 bucket."""
+    n_cases = 0
+    for seed, (k, n_cls, pairs, top) in enumerate(COUNTING_TABLES):
+        req = required_table(seed, k, n_cls, pairs, top)
+        rng = np.random.RandomState(300 + seed)
+        for ranks in (1, 4, 2000):
+            for code8 in (True, False):
+                n_rows = rng.choice([0, 1, 33, 257], size=len(FUSED_WIDTHS))
+                buckets = [(int(n), w, w == FUSED_WIDTHS[-1]) for n, w in zip(n_rows, FUSED_WIDTHS)]
+                fused_errs(*fused_case(500 + 10 * seed + ranks, buckets, dev, ranks, code8, k=k,
+                                       density=DENSITIES[seed % 3], required=req), errs)
+                n_cases += 1
+    unmet = np.full((16, 16), 15, dtype=np.int64)
+    for ranks in (1, 4):
+        fused_errs(*fused_case(900 + ranks, [(40, 8, False), (30, 16, False), (60, 16, True)],
+                               dev, ranks, k=16, density=1.0, required=unmet,
+                               cycle_classes=True), errs)
+        n_cases += 1
+    check_errs({k: errs[k] for k in FUSED_KERNELS}, "under the counting rule at small shapes")
+    log(f"[27] counting supersteps equal their twins on {n_cases} small cases (tables "
+        f"(k, classes, pairs, largest) {COUNTING_TABLES}, every width, split hubs, ranks "
+        f"1/4/2000, uint8 and int32 codes, every requirement unmet): "
+        f"{ {k: errs[k] for k in FUSED_KERNELS} }")
 
 
 def compare_fused_small(dev, errs):
@@ -2266,6 +2332,7 @@ def compare_fused_small(dev, errs):
     log(f"[27] fused supersteps equal their twins on {n_cases} small cases (widths 1..8192, "
         f"split hubs, ranks 1/4/2000, uint8 and int32 codes, empty buckets): "
         f"{ {k: errs[k] for k in FUSED_KERNELS} }")
+    compare_counting_small(dev, errs)
 
 
 class FusedCheck:
@@ -2307,7 +2374,9 @@ def fused_bound_ms(lcc, alive_rev):
     tp_flag (S + 1 B each) and the stats. K1 also reads the label codes
     and their table; K2 reads alive_rev, alive and tp_flag (a byte a slot
     each) and, only where alive_rev is set, the neighbour id (4 B) and the
-    tv entries of the distinct neighbours (4 B each)."""
+    tv entries of the distinct neighbours (4 B each). Under the counting
+    rule K1 also reads each slot's class byte, K2 the class bytes where
+    alive_rev is set."""
     pl = lcc._planes
     s, v, r = pl.num_slots, pl.num_vertices, pl.num_ranks
     n_seg = pl.seg_rows.numel()
@@ -2317,6 +2386,8 @@ def fused_bound_ms(lcc, alive_rev):
     n_rev = int(alive_rev.sum())
     distinct = int(torch.unique(pl.adj[alive_rev]).numel())
     k2 = common + s + 2 * (s + 1) + 4 * n_rev + 4 * distinct
+    if pl.cls is not None:
+        k1, k2 = k1 + s, k2 + n_rev
     return {"init_superstep": k1, "continuation_superstep": k2}
 
 
@@ -2338,7 +2409,31 @@ def fused_at_s21(engine, errs):
             f"({chk.n} checked, {len(lp_rows(r))} supersteps), anchors OK")
     check_errs({k: errs[k] for k in FUSED_KERNELS}, "on the s21 searches' supersteps")
 
-    lcc = engine.lcc
+    return time_fused_post_init(engine.lcc, "[27]")
+
+
+def fused_counting_at_s21(engine, errs):
+    """Phase 27 after phase 14, on its counting engine: one s21 counting
+    search each with the compact path and with compact=False in which every
+    fused superstep (the counting instantiations) is held against its twin
+    on the same inputs, anchors asserted; then both timed at the post-init
+    state of the full engine as ``fused_at_s21`` times the default mode's."""
+    for compact, what in ((True, "compact"), (False, "compact=False")):
+        with FusedCheck(errs) as chk:
+            r = compact_mode(engine, compact).run()
+        check_anchors(r, S21_ANCHORS, f"[27] s21 counting {what} checked search")
+        log(f"[27] s21 counting {what}: every fused superstep equals its twin "
+            f"({chk.n} checked, {len(lp_rows(r))} supersteps), anchors OK")
+    check_errs({k: errs[k] for k in FUSED_KERNELS}, "on the s21 counting searches' supersteps")
+    compact_mode(engine, True)
+    return time_fused_post_init(engine.lcc, "[27] counting")
+
+
+def time_fused_post_init(lcc, tag):
+    """Both fused supersteps of ``lcc`` at its post-init state of the full
+    graph (K2 over every slot), by CUDA-graph replay in turns (twin, kernel,
+    kernel, twin) beside the twin, each also eagerly, and their bytes
+    bounds."""
     st, _, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
     alive_rev = ops.rev_alive_lookup(lcc._rev_flat, ops.alive_table(st.alive))
     planes, tmpl = lcc._planes, lcc._tmpl
@@ -2356,7 +2451,7 @@ def fused_at_s21(engine, errs):
     nbytes = fused_bound_ms(lcc, alive_rev)
     split = planes.table[:, lf.SPLIT] == 1
     longest = int(planes.table[split, lf.W].max() * planes.seg_start.diff().max()) if split.any() else 0
-    log(f"[27] post-init state: {int(st.alive.sum())} alive slots of {lcc.num_slots}, "
+    log(f"{tag} post-init state: {int(st.alive.sum())} alive slots of {lcc.num_slots}, "
         f"alive_rev set {int(alive_rev.sum())}, {planes.seg_rows.numel()} segments in "
         f"{len(planes.table)} buckets (rows, width) {planes.table[:, :2].tolist()}, the longest "
         f"split segment {longest} slots; superstep_bytes {superstep_bytes(lcc, init=True)} B "
@@ -2368,7 +2463,7 @@ def fused_at_s21(engine, errs):
         k_ms, p_ms = (raw[1] + raw[2]) / 2, (raw[0] + raw[3]) / 2
         bound = nbytes[k] / HBM_BYTES_PER_MS
         times[k] = (k_ms, p_ms, bound)
-        log(f"[27] {k}: kernel {raw[1]:.4f}/{raw[2]:.4f} ms, twin {raw[0]:.4f}/{raw[3]:.4f} "
+        log(f"{tag} {k}: kernel {raw[1]:.4f}/{raw[2]:.4f} ms, twin {raw[0]:.4f}/{raw[3]:.4f} "
             f"ms (CUDA-graph replay); eager kernel {time_cuda(kernel, graph=False):.4f} ms, "
             f"eager twin {time_cuda(plain, reps=3, graph=False):.4f} ms; bound {bound:.4f} ms "
             f"({nbytes[k]} B, bytes), {100 * bound / k_ms:.1f} % of bound")
@@ -2542,11 +2637,10 @@ def main() -> int:
     host_profile(cycle.run, "[13] s21 cycle nlcc_mode=device search")
     del cycle
 
-    engines, counting_launches = run_s21_modes(
-        g, labels, pattern, constraints, dev, lp_rows(r_full))
-    # gather_accept_or's path is the counting mode's superstep since the
-    # default mode fused its own
-    launches["gather_accept_or"] = counting_launches["gather_accept_or"]
+    engines, _ = run_s21_modes(g, labels, pattern, constraints, dev, lp_rows(r_full))
+    t0 = time.perf_counter()
+    fused_counting_at_s21(engines["counting"], errs)
+    log(f"[27] the counting supersteps at s21 took {time.perf_counter() - t0:.1f} s")
     engines["default"] = engine
     time_mode_supersteps(engines)
     del engines, engine

@@ -15,6 +15,17 @@
 //     lcc_bucketed.py:604-620), followed by the same epilogue with the
 //     continuation's rules.
 //
+//   * the counting instantiations of both (kCounting; entry points
+//     fpm_init_superstep_counting, fpm_continuation_superstep_counting):
+//     the upstream's --counting rule of the JAX package's _superstep
+//     (:671-700, the counting branch's class counts), where candidate i
+//     keeps its bit only if it heard required[i, j] accepted senders of
+//     each label class j. They read a per-slot sender class byte (cls,
+//     0 = none, 1..L) beside the other inputs and count, per segment, the
+//     accepted slots of class j whose candidates meet adj_all[i], for
+//     each requirement (i, j); the count mask is ANDed into the new tv
+//     before the live test, the died test and the alive write.
+//
 // Bound on this card: bytes. tools_torch/common.superstep_bytes counts what
 // each superstep must move, each input read once and each output written
 // once: at R-MAT s21 (90.8 M slots, 2 M vertices) 310,941,830 B for the
@@ -57,6 +68,19 @@
 //     again (its own earlier stores, so no ordering across threads is
 //     needed). The segment step needs no second pass over the slots.
 //
+// Counting: the requirements with required[i, j] > 0 form a list of
+// pairs (at most 16 x 16), counted 16 pairs a register group: two words of
+// 4-bit counts that saturate at 15 (no requirement is larger: the largest
+// template degree), so a slot adds to them, and lanes meet them, by a
+// saturating nibble add. Lanes meet a group as they meet tn and the
+// counters: the xor-shuffle in warp mode; in block mode __reduce_add_sync
+// over 16-bit fields, then shared memory across the segment's warps. The
+// first group is counted in the superstep's own pass; a template with more
+// than 16 requirements takes one more counting pass over the segment's
+// slots a further group (only the reads, no write). K1 streams cls beside
+// the codes; K2 reads it only where alive_rev is set, as it reads adj and
+// tv. Nothing is written per slot but the alive byte.
+//
 // Counters: with one output rank each thread keeps its sums in registers
 // and a warp reduction and one shared-memory atomic per warp follow at the
 // end; with more ranks (up to kSharedRanks) each segment adds to per-rank
@@ -85,6 +109,10 @@ constexpr int kMaxK = 16;  // template vertices: tv holds 16 bits
 constexpr int kSharedRanks = 1024;
 // uint8 label codes: the code -> candidates table staged in shared memory.
 constexpr int kSharedCodes = 256;
+// Counting: label classes, requirement pairs a register group, all pairs.
+constexpr int kMaxClasses = 16;
+constexpr int kGroupPairs = 16;
+constexpr int kMaxPairs = kMaxK * kMaxClasses;
 
 int sm_count() {
     static int sms = 0;
@@ -108,6 +136,22 @@ struct Tmpl {
     uint32_t opt[kMaxK];
     int32_t opt_min[kMaxK];
 };
+
+// The counting rule: the sender's label class per slot, and one word a
+// requirement pair, adj_all[i] (bits 0-15) | (j: class - 1) << 16 | i << 20
+// | required[i, j] << 24, in groups of kGroupPairs; words past the last
+// pair are 0 (they never count and are always met). The default mode's
+// kernels take an empty NoReq in its place, so their Planes and code stay
+// as they are.
+struct Req {
+    const uint8_t* cls;
+    int32_t groups;  // 1 .. kMaxPairs / kGroupPairs
+    uint32_t pair[kMaxPairs];
+};
+struct NoReq {};
+template <bool kCounting> struct ReqOf { using type = NoReq; };
+template <> struct ReqOf<true> { using type = Req; };
+template <bool kCounting> using ReqT = typename ReqOf<kCounting>::type;
 
 struct Buckets {
     int32_t count;
@@ -155,6 +199,10 @@ struct Cnt {  // one output rank: a thread's sums
     uint32_t av = 0, ae = 0, msg = 0;
 };
 
+struct Tally {  // counting: a register group's 16 counts, 4 bits each
+    uint32_t lo = 0, hi = 0;
+};
+
 __device__ __forceinline__ uint32_t nibble(uint32_t x) {
     // four 0/1 bytes -> four bits
     return (x & 1u) | ((x >> 7) & 2u) | ((x >> 14) & 4u) | ((x >> 21) & 8u);
@@ -165,6 +213,89 @@ __device__ __forceinline__ uint32_t bits8(uint2 v) { return nibble(v.x) | (nibbl
 __device__ __forceinline__ uint32_t spread4(uint32_t b) {
     // four bits -> four 0/1 bytes
     return (b & 1u) | ((b & 2u) << 7) | ((b & 4u) << 14) | ((b & 8u) << 21);
+}
+
+__device__ __forceinline__ uint32_t spread_nibbles(uint32_t b) {
+    // eight bits -> eight 0/1 nibbles
+    b = (b | (b << 12)) & 0x000f000fu;
+    b = (b | (b << 6)) & 0x03030303u;
+    return (b | (b << 3)) & 0x11111111u;
+}
+
+__device__ __forceinline__ uint32_t add_nibbles(uint32_t a, uint32_t b) {
+    // eight 4-bit counts, each sum saturating at 15
+    const uint32_t s = (a & 0x77777777u) + (b & 0x77777777u);
+    const uint32_t sum = s ^ ((a ^ b) & 0x88888888u);
+    const uint32_t carry = ((a & b) | (s & (a | b))) & 0x88888888u;
+    return sum | ((carry >> 3) * 0xfu);
+}
+
+// counting: one accepted slot of class c (1..L; 0 counts nowhere) with
+// candidates p, into the counts of group g
+__device__ __forceinline__ void tally_slot(uint32_t p, uint32_t c, const Req& rq, int g, Tally& t) {
+    uint32_t hit = 0;
+#pragma unroll
+    for (int q = 0; q < kGroupPairs; ++q) {
+        const uint32_t w = rq.pair[g * kGroupPairs + q];
+        hit |= static_cast<uint32_t>(((w >> 16) & 0xfu) + 1u == c && (p & w & 0xffffu) != 0) << q;
+    }
+    if (hit) {
+        t.lo = add_nibbles(t.lo, spread_nibbles(hit & 0xffu));
+        t.hi = add_nibbles(t.hi, spread_nibbles(hit >> 8));
+    }
+}
+
+// counting: the candidates whose requirements of group g the counts meet
+__device__ __forceinline__ uint32_t group_keep(const Tally& t, const Req& rq, int g) {
+    uint32_t keep = 0xffffffffu;
+#pragma unroll
+    for (int q = 0; q < kGroupPairs; ++q) {
+        const uint32_t w = rq.pair[g * kGroupPairs + q];
+        const uint32_t cnt = ((q < 8 ? t.lo : t.hi) >> (4 * (q & 7))) & 0xfu;
+        if (cnt < ((w >> 24) & 0xfu)) keep &= ~(1u << ((w >> 20) & 0xfu));
+    }
+    return keep;
+}
+
+// warp mode: the counts of a segment's L lanes met in every one of them
+__device__ __forceinline__ Tally meet_lanes(Tally t, int L) {
+    for (int off = 1; off < L; off <<= 1) {
+        t.lo = add_nibbles(t.lo, __shfl_xor_sync(kFull, t.lo, off));
+        t.hi = add_nibbles(t.hi, __shfl_xor_sync(kFull, t.hi, off));
+    }
+    return t;
+}
+
+// block mode: a warp's counts as eight words of two 16-bit fields (32
+// lanes of at most 15 each cannot carry across a field), summed over the
+// warp into s_tal[.][warp]
+__device__ __forceinline__ void tally_to_shared(const Tally& t, uint32_t (*s_tal)[kWarps],
+                                                int warp, int lane) {
+#pragma unroll
+    for (int h = 0; h < 8; ++h) {
+        const uint32_t x = (h < 4 ? t.lo : t.hi) >> (8 * (h & 3));
+        const uint32_t sum = __reduce_add_sync(kFull, (x & 0xfu) | ((x & 0xf0u) << 12));
+        if (lane == 0) s_tal[h][warp] = sum;
+    }
+}
+
+// block mode: the counts of the P warps from `first`, saturated to 4 bits
+__device__ __forceinline__ Tally tally_from_shared(uint32_t (*s_tal)[kWarps], int first,
+                                                   int P) {
+    Tally t;
+#pragma unroll
+    for (int h = 0; h < 8; ++h) {
+        uint32_t sum = 0;  // at most 8 warps x 32 lanes x 15 a field
+        for (int j = first; j < first + P; ++j) sum += s_tal[h][j];
+        const uint32_t a = min(sum & 0xffffu, 15u), b = min(sum >> 16, 15u);
+        const uint32_t two = (a | (b << 4)) << (8 * (h & 3));
+        if (h < 4) t.lo |= two; else t.hi |= two;
+    }
+    return t;
+}
+
+__device__ __forceinline__ uint32_t byte_of(uint2 v, int k) {
+    return ((k < 4 ? v.x : v.y) >> (8 * (k & 3))) & 0xffu;
 }
 
 __device__ __forceinline__ uint32_t or_over_bits(uint32_t tvs, const Tmpl& tm) {
@@ -193,14 +324,16 @@ __device__ __forceinline__ uint32_t keep_mask(uint32_t tn, const Tmpl& tm) {
 
 // The segment's new tv from its tv and its tn, and whether it died: at
 // init a segment that heard nothing is out of the map (tv 0, not died).
+// count_keep: the counting mode's mask of candidates whose counts met
+// their requirements (all ones in the default mode).
 template <bool kInit>
 __device__ __forceinline__ uint32_t new_tv_of(uint32_t tvs, uint32_t tn, const Tmpl& tm,
-                                              bool& died) {
+                                              uint32_t count_keep, bool& died) {
     if (kInit && tn == 0) {
         died = false;
         return 0u;
     }
-    const uint32_t nt = tvs & keep_mask(tn, tm);
+    const uint32_t nt = tvs & keep_mask(tn, tm) & count_keep;
     died = (kInit || tvs != 0) && nt == 0;
     return nt;
 }
@@ -214,6 +347,18 @@ __device__ __forceinline__ uint32_t accept_slot(uint32_t p, uint32_t m, Acc& acc
     return 1u;
 }
 
+// accept_slot, and in the counting mode the accepted slot counted with its
+// sender's class c
+template <bool kCounting>
+__device__ __forceinline__ uint32_t take(uint32_t p, uint32_t m, Acc& acc, uint32_t c,
+                                         const ReqT<kCounting>& rq, int g, Tally& t) {
+    const uint32_t bit = accept_slot(p, m, acc);
+    if constexpr (kCounting) {
+        if (bit) tally_slot(p, c, rq, g, t);
+    }
+    return bit;
+}
+
 template <bool kCode8>
 __device__ __forceinline__ uint32_t candidates(const Planes& pl, const int32_t* s_ctv, uint32_t c) {
     if (kCode8) return static_cast<uint32_t>(s_ctv[c]);
@@ -224,14 +369,29 @@ __device__ __forceinline__ uint32_t candidates(const Planes& pl, const int32_t* 
 // vec is 8): K1 the label codes; K2 the alive_rev, alive and tp_flag
 // bytes. Loaded apart from their use so that block mode can keep two
 // steps' loads in flight.
+template <bool kCounting>
 struct Raw {
     uint4 a = make_uint4(0u, 0u, 0u, 0u);
     uint4 b = make_uint4(0u, 0u, 0u, 0u);
 };
+template <>
+struct Raw<true> {
+    uint4 a = make_uint4(0u, 0u, 0u, 0u);
+    uint4 b = make_uint4(0u, 0u, 0u, 0u);
+    uint2 c = make_uint2(0u, 0u);  // K1: the class bytes
+};
 
-template <bool kInit, bool kCode8>
-__device__ __forceinline__ Raw load_step(const Planes& pl, int64_t s, int vec) {
-    Raw r;
+template <bool kInit, bool kCode8, bool kCounting>
+__device__ __forceinline__ Raw<kCounting> load_step(const Planes& pl, const ReqT<kCounting>& rq,
+                                                    int64_t s, int vec) {
+    Raw<kCounting> r;
+    if constexpr (kInit && kCounting) {
+        if (vec == 8) {
+            r.c = __ldcs(reinterpret_cast<const uint2*>(rq.cls + s));
+        } else {
+            r.c.x = rq.cls[s];
+        }
+    }
     if (vec == 8) {
         if (kInit && kCode8) {
             const uint2 v = __ldcs(reinterpret_cast<const uint2*>(pl.code8 + s));
@@ -257,21 +417,26 @@ __device__ __forceinline__ Raw load_step(const Planes& pl, int64_t s, int vec) {
 }
 
 // K2, one slot whose reverse edge is alive: p = tv[adj], 0 at the sentinel
-__device__ __forceinline__ uint32_t gather_slot(const Planes& pl, int32_t a, uint32_t m, Acc& acc) {
-    const uint32_t p = static_cast<uint32_t>(a) < static_cast<uint64_t>(pl.num_vertices)
-                           ? static_cast<uint32_t>(__ldg(pl.tv + a))
-                           : 0u;
-    return accept_slot(p, m, acc);
+__device__ __forceinline__ uint32_t tv_at(const Planes& pl, int32_t a) {
+    return static_cast<uint32_t>(a) < static_cast<uint64_t>(pl.num_vertices)
+               ? static_cast<uint32_t>(__ldg(pl.tv + a))
+               : 0u;
 }
 
 // a lane's step from its loaded inputs: its output bits before the live
-// test (K1: accept; K2: own_alive & (accept | own_flag)). K2 reads adj and
-// the tv entries only for the slots whose alive_rev is set.
-template <bool kInit, bool kCode8>
+// test (K1: accept; K2: own_alive & (accept | own_flag)). K2 reads adj, the
+// tv entries and (counting) the class bytes only for the slots whose
+// alive_rev is set. Counting: the accepted slots into group g's counts.
+template <bool kInit, bool kCode8, bool kCounting>
 __device__ __forceinline__ uint32_t run_step(const Planes& pl, const int32_t* s_ctv, int64_t s,
-                                             int vec, const Raw& r, uint32_t m, Acc& acc) {
+                                             int vec, const Raw<kCounting>& r, uint32_t m,
+                                             Acc& acc, const ReqT<kCounting>& rq, int g, Tally& t) {
     if (kInit) {
-        if (vec != 8) return accept_slot(candidates<kCode8>(pl, s_ctv, r.a.x), m, acc);
+        uint2 cl = make_uint2(0u, 0u);
+        if constexpr (kCounting) cl = r.c;
+        if (vec != 8) {
+            return take<kCounting>(candidates<kCode8>(pl, s_ctv, r.a.x), m, acc, cl.x, rq, g, t);
+        }
         uint32_t c[8];
         if (kCode8) {
 #pragma unroll
@@ -285,28 +450,43 @@ __device__ __forceinline__ uint32_t run_step(const Planes& pl, const int32_t* s_
         }
         uint32_t bits = 0;
 #pragma unroll
-        for (int k = 0; k < 8; ++k) bits |= accept_slot(candidates<kCode8>(pl, s_ctv, c[k]), m, acc) << k;
+        for (int k = 0; k < 8; ++k) {
+            bits |= take<kCounting>(candidates<kCode8>(pl, s_ctv, c[k]), m, acc, byte_of(cl, k),
+                                    rq, g, t) << k;
+        }
         return bits;
     }
     if (vec != 8) {
-        const uint32_t a = r.a.x ? gather_slot(pl, pl.adj[s], m, acc) : 0u;
+        uint32_t cl = 0;
+        if constexpr (kCounting) {
+            if (r.a.x) cl = rq.cls[s];
+        }
+        const uint32_t a = r.a.x ? take<kCounting>(tv_at(pl, pl.adj[s]), m, acc, cl, rq, g, t) : 0u;
         return r.a.y & (a | r.a.z);
     }
     const uint32_t rb = bits8(make_uint2(r.a.x, r.a.y));
+    uint2 cl = make_uint2(0u, 0u);
+    if constexpr (kCounting) {
+        if (rb) cl = __ldcs(reinterpret_cast<const uint2*>(rq.cls + s));
+    }
+    // slot k of the eight, its neighbour a
+    auto gather = [&](int32_t a, int k) {
+        return take<kCounting>(tv_at(pl, a), m, acc, byte_of(cl, k), rq, g, t) << k;
+    };
     uint32_t acc_bits = 0;
     if (rb & 0x0fu) {
         const int4 a = __ldcs(reinterpret_cast<const int4*>(pl.adj + s));
-        if (rb & 1u) acc_bits |= gather_slot(pl, a.x, m, acc);
-        if (rb & 2u) acc_bits |= gather_slot(pl, a.y, m, acc) << 1;
-        if (rb & 4u) acc_bits |= gather_slot(pl, a.z, m, acc) << 2;
-        if (rb & 8u) acc_bits |= gather_slot(pl, a.w, m, acc) << 3;
+        if (rb & 1u) acc_bits |= gather(a.x, 0);
+        if (rb & 2u) acc_bits |= gather(a.y, 1);
+        if (rb & 4u) acc_bits |= gather(a.z, 2);
+        if (rb & 8u) acc_bits |= gather(a.w, 3);
     }
     if (rb & 0xf0u) {
         const int4 a = __ldcs(reinterpret_cast<const int4*>(pl.adj + s + 4));
-        if (rb & 0x10u) acc_bits |= gather_slot(pl, a.x, m, acc) << 4;
-        if (rb & 0x20u) acc_bits |= gather_slot(pl, a.y, m, acc) << 5;
-        if (rb & 0x40u) acc_bits |= gather_slot(pl, a.z, m, acc) << 6;
-        if (rb & 0x80u) acc_bits |= gather_slot(pl, a.w, m, acc) << 7;
+        if (rb & 0x10u) acc_bits |= gather(a.x, 4);
+        if (rb & 0x20u) acc_bits |= gather(a.y, 5);
+        if (rb & 0x40u) acc_bits |= gather(a.z, 6);
+        if (rb & 0x80u) acc_bits |= gather(a.w, 7);
     }
     return bits8(make_uint2(r.a.z, r.a.w)) & (acc_bits | bits8(make_uint2(r.b.x, r.b.y)));
 }
@@ -342,32 +522,49 @@ __device__ __forceinline__ void count(const Planes& pl, uint32_t* s_cnt, Cnt& c,
 }
 
 // warp mode: a block task is 8 warps x 32/L segments of L lanes
-template <bool kInit, bool kCode8>
+template <bool kInit, bool kCode8, bool kCounting>
 __device__ __forceinline__ void warp_segments(const Planes& pl, const Buckets& bt, const Tmpl& tm,
-                                              int b, int64_t task, int warp, int lane,
-                                              const int32_t* s_ctv, uint32_t* s_cnt, Cnt& cnt) {
+                                              const ReqT<kCounting>& rq, int b, int64_t task,
+                                              int warp, int lane, const int32_t* s_ctv,
+                                              uint32_t* s_cnt, Cnt& cnt) {
     const int L = bt.group[b], vec = bt.vec[b];
     const int64_t seg = task * bt.per_task[b] + warp * (32 / L) + lane / L;
     const int l_in = lane & (L - 1);
     const bool active = seg < bt.n_seg[b];
     const int64_t gseg = bt.seg_base[b] + seg;
     Acc acc;
+    Tally tal;
     uint32_t bits = 0, tvs = 0;
     int64_t v = 0, s = 0;
     if (active) {
         v = pl.seg_rows[gseg];
         tvs = static_cast<uint32_t>(pl.tv[v]);
         s = bt.slot_base[b] + seg * bt.width[b] + l_in * vec;
-        bits = run_step<kInit, kCode8>(pl, s_ctv, s, vec, load_step<kInit, kCode8>(pl, s, vec),
-                                       or_over_bits(tvs, tm), acc);
+        bits = run_step<kInit, kCode8, kCounting>(
+            pl, s_ctv, s, vec, load_step<kInit, kCode8, kCounting>(pl, rq, s, vec),
+            or_over_bits(tvs, tm), acc, rq, 0, tal);
     }
     // lanes past the last segment carry zeros through the shuffles
     for (int off = 1; off < L; off <<= 1) {
         acc.tn |= __shfl_xor_sync(kFull, acc.tn, off);
         acc.send += __shfl_xor_sync(kFull, acc.send, off);
     }
+    uint32_t count_keep = 0xffffffffu;
+    if constexpr (kCounting) {
+        count_keep = group_keep(meet_lanes(tal, L), rq, 0);
+        for (int g = 1; g < rq.groups; ++g) {  // a further pass a further group
+            Acc again;
+            Tally t;
+            if (active) {
+                run_step<kInit, kCode8, kCounting>(
+                    pl, s_ctv, s, vec, load_step<kInit, kCode8, kCounting>(pl, rq, s, vec),
+                    or_over_bits(tvs, tm), again, rq, g, t);
+            }
+            count_keep &= group_keep(meet_lanes(t, L), rq, g);
+        }
+    }
     bool died = false;
-    const uint32_t nt = new_tv_of<kInit>(tvs, acc.tn, tm, died);
+    const uint32_t nt = new_tv_of<kInit>(tvs, acc.tn, tm, count_keep, died);
     const uint32_t out = nt != 0 ? bits : 0u;
     uint32_t ae = __popc(out);
     for (int off = 1; off < L; off <<= 1) ae += __shfl_xor_sync(kFull, ae, off);
@@ -381,12 +578,14 @@ __device__ __forceinline__ void warp_segments(const Planes& pl, const Buckets& b
 }
 
 // block mode: a block task is 8/P segments of P warps (block-uniform: every
-// thread reaches both barriers)
-template <bool kInit, bool kCode8>
+// thread reaches every barrier)
+template <bool kInit, bool kCode8, bool kCounting>
 __device__ __forceinline__ void block_segments(const Planes& pl, const Buckets& bt, const Tmpl& tm,
-                                               int b, int64_t task, int warp, int lane,
-                                               const int32_t* s_ctv, uint32_t (*s_red)[kWarps],
-                                               uint32_t* s_cnt, Cnt& cnt) {
+                                               const ReqT<kCounting>& rq, int b, int64_t task,
+                                               int warp, int lane, const int32_t* s_ctv,
+                                               uint32_t (*s_red)[kWarps],
+                                               uint32_t (*s_tal)[kWarps], uint32_t* s_cnt,
+                                               Cnt& cnt) {
     const int P = bt.group[b], vec = bt.vec[b];
     const int64_t w = bt.width[b];
     const int grp = warp / P, sub = warp - grp * P;
@@ -395,6 +594,7 @@ __device__ __forceinline__ void block_segments(const Planes& pl, const Buckets& 
     const int64_t gseg = bt.seg_base[b] + seg;
     const int64_t stride = static_cast<int64_t>(P) * 32 * vec;
     Acc acc;
+    Tally tal;
     uint32_t tvs = 0, set = 0;
     int64_t v = 0, first = 0, hi = 0;
     if (active) {
@@ -412,13 +612,17 @@ __device__ __forceinline__ void block_segments(const Planes& pl, const Buckets& 
         // two steps a turn, both steps' loads issued before either is used
         for (int64_t s = first; s < hi; s += 2 * stride) {
             const bool two = s + stride < hi;
-            const Raw r0 = load_step<kInit, kCode8>(pl, s, vec);
-            const Raw r1 = two ? load_step<kInit, kCode8>(pl, s + stride, vec) : Raw{};
-            const uint32_t b0 = run_step<kInit, kCode8>(pl, s_ctv, s, vec, r0, m, acc);
+            const Raw<kCounting> r0 = load_step<kInit, kCode8, kCounting>(pl, rq, s, vec);
+            const Raw<kCounting> r1 =
+                two ? load_step<kInit, kCode8, kCounting>(pl, rq, s + stride, vec)
+                    : Raw<kCounting>{};
+            const uint32_t b0 =
+                run_step<kInit, kCode8, kCounting>(pl, s_ctv, s, vec, r0, m, acc, rq, 0, tal);
             store_step(pl.new_alive, s, vec, b0);
             set += __popc(b0);
             if (two) {
-                const uint32_t b1 = run_step<kInit, kCode8>(pl, s_ctv, s + stride, vec, r1, m, acc);
+                const uint32_t b1 = run_step<kInit, kCode8, kCounting>(pl, s_ctv, s + stride, vec,
+                                                                       r1, m, acc, rq, 0, tal);
                 store_step(pl.new_alive, s + stride, vec, b1);
                 set += __popc(b1);
             }
@@ -428,6 +632,7 @@ __device__ __forceinline__ void block_segments(const Planes& pl, const Buckets& 
     acc.tn = __reduce_or_sync(kFull, acc.tn);
     acc.send = __reduce_add_sync(kFull, acc.send);
     set = __reduce_add_sync(kFull, set);
+    if constexpr (kCounting) tally_to_shared(tal, s_tal, warp, lane);
     if (lane == 0) {
         s_red[0][warp] = acc.tn;
         s_red[1][warp] = acc.send;
@@ -440,9 +645,29 @@ __device__ __forceinline__ void block_segments(const Planes& pl, const Buckets& 
         send += s_red[1][j];
         ae += s_red[2][j];
     }
+    uint32_t count_keep = 0xffffffffu;
+    if constexpr (kCounting) count_keep = group_keep(tally_from_shared(s_tal, grp * P, P), rq, 0);
     __syncthreads();  // every warp has read s_red before the next task writes it
+    if constexpr (kCounting) {
+        for (int g = 1; g < rq.groups; ++g) {  // a further pass a further group
+            Acc again;
+            Tally t;
+            if (active) {
+                const uint32_t m = or_over_bits(tvs, tm);
+                for (int64_t s = first; s < hi; s += stride) {
+                    run_step<kInit, kCode8, kCounting>(
+                        pl, s_ctv, s, vec, load_step<kInit, kCode8, kCounting>(pl, rq, s, vec), m,
+                        again, rq, g, t);
+                }
+            }
+            tally_to_shared(t, s_tal, warp, lane);
+            __syncthreads();
+            count_keep &= group_keep(tally_from_shared(s_tal, grp * P, P), rq, g);
+            __syncthreads();
+        }
+    }
     bool died = false;
-    const uint32_t nt = new_tv_of<kInit>(tvs, tn, tm, died);
+    const uint32_t nt = new_tv_of<kInit>(tvs, tn, tm, count_keep, died);
     if (!active) return;
     if (nt == 0 && wrote != 0) {
         // a dead segment keeps no slot alive: clear this lane's own slots
@@ -455,12 +680,13 @@ __device__ __forceinline__ void block_segments(const Planes& pl, const Buckets& 
     }
 }
 
-template <bool kInit, bool kCode8>
+template <bool kInit, bool kCode8, bool kCounting>
 __global__ void __launch_bounds__(kThreads)
 superstep_kernel(const __grid_constant__ Planes pl, const __grid_constant__ Buckets bt,
-                 const __grid_constant__ Tmpl tm) {
+                 const __grid_constant__ Tmpl tm, const __grid_constant__ ReqT<kCounting> rq) {
     __shared__ int32_t s_ctv[kSharedCodes];
     __shared__ uint32_t s_red[3][kWarps];
+    __shared__ uint32_t s_tal[kCounting ? 8 : 1][kWarps];  // counting: a group's fields
     extern __shared__ uint32_t s_cnt[];  // 3 per rank, up to kSharedRanks ranks
     const int n_cnt = pl.ranks <= kSharedRanks ? 3 * pl.ranks : 0;
     for (int i = threadIdx.x; i < n_cnt; i += kThreads) s_cnt[i] = 0;
@@ -483,9 +709,11 @@ superstep_kernel(const __grid_constant__ Planes pl, const __grid_constant__ Buck
         const int b = bt.order[i];
         const int64_t task = t - (i ? bt.task_end[i - 1] : 0);
         if (bt.warp_mode[b]) {
-            warp_segments<kInit, kCode8>(pl, bt, tm, b, task, warp, lane, s_ctv, s_cnt, cnt);
+            warp_segments<kInit, kCode8, kCounting>(pl, bt, tm, rq, b, task, warp, lane, s_ctv,
+                                                    s_cnt, cnt);
         } else {
-            block_segments<kInit, kCode8>(pl, bt, tm, b, task, warp, lane, s_ctv, s_red, s_cnt, cnt);
+            block_segments<kInit, kCode8, kCounting>(pl, bt, tm, rq, b, task, warp, lane, s_ctv,
+                                                     s_red, s_tal, s_cnt, cnt);
         }
     }
 
@@ -589,18 +817,46 @@ bool read_template(const int64_t* words, Tmpl* tm) {
     return true;
 }
 
-template <bool kInit, bool kCode8>
+// Counting: the requirement table required[i, j] (16 x 16 words after the
+// template's, row i for template vertex i, 0 past k and past L) -> its
+// pairs. Every entry is 0..15.
+bool read_required(const int64_t* words, const Tmpl& tm, Req* rq) {
+    const uint8_t* cls = rq->cls;
+    *rq = Req{};
+    rq->cls = cls;
+    int n = 0;
+    for (int i = 0; i < kMaxK; ++i) {
+        for (int j = 0; j < kMaxClasses; ++j) {
+            const int64_t r = words[1 + 4 * kMaxK + kMaxClasses * i + j];
+            if (r < 0 || r > 15 || (r > 0 && i >= tm.k)) return false;
+            if (r == 0) continue;
+            rq->pair[n++] = (tm.adj_all[i] & 0xffffu) | (static_cast<uint32_t>(j) << 16) |
+                            (static_cast<uint32_t>(i) << 20) | (static_cast<uint32_t>(r) << 24);
+        }
+    }
+    rq->groups = n > kGroupPairs ? (n + kGroupPairs - 1) / kGroupPairs : 1;
+    return true;
+}
+
+bool read_rule(const int64_t*, const Tmpl&, NoReq*) { return true; }
+bool read_rule(const int64_t* words, const Tmpl& tm, Req* rq) {
+    return read_required(words, tm, rq);
+}
+
+template <bool kInit, bool kCode8, bool kCounting>
 int launch(Planes pl, const int64_t* table, int32_t count, int64_t total_segs, bool vec_ok,
-           const int64_t* tmpl_words, cudaStream_t stream) {
+           const int64_t* tmpl_words, const void* cls, cudaStream_t stream) {
     Buckets bt;
     Tmpl tm;
-    if (pl.ranks < 1 || !read_template(tmpl_words, &tm) ||
+    ReqT<kCounting> rq{};
+    if constexpr (kCounting) rq.cls = static_cast<const uint8_t*>(cls);
+    if (pl.ranks < 1 || !read_template(tmpl_words, &tm) || !read_rule(tmpl_words, tm, &rq) ||
         !map_buckets(table, count, total_segs, vec_ok, &bt, &pl.num_slots)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const int64_t tasks = bt.task_end[count - 1];
     if (tasks == 0) return static_cast<int>(cudaGetLastError());
-    auto kernel = superstep_kernel<kInit, kCode8>;
+    auto kernel = superstep_kernel<kInit, kCode8, kCounting>;
     const size_t smem = sizeof(uint32_t) * 3 * (pl.ranks <= kSharedRanks ? pl.ranks : 0);
     int per_sm = 0;
     cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
@@ -608,7 +864,7 @@ int launch(Planes pl, const int64_t* table, int32_t count, int64_t total_segs, b
     if (per_sm < 1) per_sm = 1;
     const int64_t cap = static_cast<int64_t>(sm_count()) * per_sm;
     const int blocks = static_cast<int>(tasks < cap ? tasks : cap);
-    kernel<<<blocks, kThreads, smem, stream>>>(pl, bt, tm);
+    kernel<<<blocks, kThreads, smem, stream>>>(pl, bt, tm, rq);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -628,6 +884,50 @@ Planes common_planes(const void* seg_rows, const void* seg_start, const void* ow
     return pl;
 }
 
+template <bool kCounting>
+int init_entry(const void* code, int32_t code_bytes, const void* code_tv, int64_t code_count,
+               const void* cls, const int64_t* table, int32_t count, int64_t total_segs,
+               const void* seg_rows, const void* seg_start, const void* own_seg, const void* tv,
+               int64_t num_vertices, const int64_t* tmpl, int32_t ranks, void* new_tv,
+               void* new_alive, void* stats, void* stream) {
+    Planes pl = common_planes(seg_rows, seg_start, own_seg, tv, num_vertices, ranks, new_tv,
+                              new_alive, stats);
+    pl.code_tv = static_cast<const int32_t*>(code_tv);
+    pl.code_count = code_count;
+    const bool cls_ok = !kCounting || aligned(cls, 8);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (code_bytes == 1) {
+        if (code_count > kSharedCodes) return static_cast<int>(cudaErrorInvalidValue);
+        pl.code8 = static_cast<const uint8_t*>(code);
+        const bool vec_ok = aligned(code, 8) && aligned(new_alive, 8) && cls_ok;
+        return launch<true, true, kCounting>(pl, table, count, total_segs, vec_ok, tmpl, cls, st);
+    }
+    if (code_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
+    pl.code32 = static_cast<const int32_t*>(code);
+    const bool vec_ok = aligned(code, 16) && aligned(new_alive, 8) && cls_ok;
+    return launch<true, false, kCounting>(pl, table, count, total_segs, vec_ok, tmpl, cls, st);
+}
+
+template <bool kCounting>
+int continuation_entry(const void* adj, const void* alive_rev, const void* alive,
+                       const void* flag, const void* cls, const int64_t* table, int32_t count,
+                       int64_t total_segs, const void* seg_rows, const void* seg_start,
+                       const void* own_seg, const void* tv, int64_t num_vertices,
+                       const int64_t* tmpl, int32_t ranks, void* new_tv, void* new_alive,
+                       void* stats, void* stream) {
+    Planes pl = common_planes(seg_rows, seg_start, own_seg, tv, num_vertices, ranks, new_tv,
+                              new_alive, stats);
+    pl.adj = static_cast<const int32_t*>(adj);
+    pl.alive_rev = static_cast<const uint8_t*>(alive_rev);
+    pl.alive = static_cast<const uint8_t*>(alive);
+    pl.flag = static_cast<const uint8_t*>(flag);
+    const bool vec_ok = aligned(adj, 16) && aligned(alive_rev, 8) && aligned(alive, 8) &&
+                        aligned(flag, 8) && aligned(new_alive, 8) &&
+                        (!kCounting || aligned(cls, 8));
+    return launch<false, false, kCounting>(pl, table, count, total_segs, vec_ok, tmpl, cls,
+                                           static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // K1. code: uint8 (code_bytes 1) or int32 (4) label code per slot;
@@ -642,21 +942,9 @@ extern "C" int fpm_init_superstep(const void* code, int32_t code_bytes, const vo
                                   const void* own_seg, const void* tv, int64_t num_vertices,
                                   const int64_t* tmpl, int32_t ranks, void* new_tv,
                                   void* new_alive, void* stats, void* stream) {
-    Planes pl = common_planes(seg_rows, seg_start, own_seg, tv, num_vertices, ranks, new_tv,
-                              new_alive, stats);
-    pl.code_tv = static_cast<const int32_t*>(code_tv);
-    pl.code_count = code_count;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (code_bytes == 1) {
-        if (code_count > kSharedCodes) return static_cast<int>(cudaErrorInvalidValue);
-        pl.code8 = static_cast<const uint8_t*>(code);
-        const bool vec_ok = aligned(code, 8) && aligned(new_alive, 8);
-        return launch<true, true>(pl, table, count, total_segs, vec_ok, tmpl, st);
-    }
-    if (code_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
-    pl.code32 = static_cast<const int32_t*>(code);
-    const bool vec_ok = aligned(code, 16) && aligned(new_alive, 8);
-    return launch<true, false>(pl, table, count, total_segs, vec_ok, tmpl, st);
+    return init_entry<false>(code, code_bytes, code_tv, code_count, nullptr, table, count,
+                             total_segs, seg_rows, seg_start, own_seg, tv, num_vertices, tmpl,
+                             ranks, new_tv, new_alive, stats, stream);
 }
 
 // K2. adj: int32 [S]; alive_rev: bool [S]; alive, flag: bool [S + 1]; the
@@ -669,14 +957,39 @@ extern "C" int fpm_continuation_superstep(const void* adj, const void* alive_rev
                                           const void* tv, int64_t num_vertices,
                                           const int64_t* tmpl, int32_t ranks, void* new_tv,
                                           void* new_alive, void* stats, void* stream) {
-    Planes pl = common_planes(seg_rows, seg_start, own_seg, tv, num_vertices, ranks, new_tv,
-                              new_alive, stats);
-    pl.adj = static_cast<const int32_t*>(adj);
-    pl.alive_rev = static_cast<const uint8_t*>(alive_rev);
-    pl.alive = static_cast<const uint8_t*>(alive);
-    pl.flag = static_cast<const uint8_t*>(flag);
-    const bool vec_ok = aligned(adj, 16) && aligned(alive_rev, 8) && aligned(alive, 8) &&
-                        aligned(flag, 8) && aligned(new_alive, 8);
-    return launch<false, false>(pl, table, count, total_segs, vec_ok, tmpl,
-                                static_cast<cudaStream_t>(stream));
+    return continuation_entry<false>(adj, alive_rev, alive, flag, nullptr, table, count,
+                                     total_segs, seg_rows, seg_start, own_seg, tv, num_vertices,
+                                     tmpl, ranks, new_tv, new_alive, stats, stream);
+}
+
+// K1 under the counting rule. cls: uint8 [S], the label class (1..L, 0
+// none) of each slot's sender; tmpl: K1's words, then required[i, j] as
+// 16 x 16 words (row i, column j; 0..15). The rest as for K1.
+extern "C" int fpm_init_superstep_counting(const void* code, int32_t code_bytes,
+                                           const void* code_tv, int64_t code_count,
+                                           const void* cls, const int64_t* table, int32_t count,
+                                           int64_t total_segs, const void* seg_rows,
+                                           const void* seg_start, const void* own_seg,
+                                           const void* tv, int64_t num_vertices,
+                                           const int64_t* tmpl, int32_t ranks, void* new_tv,
+                                           void* new_alive, void* stats, void* stream) {
+    return init_entry<true>(code, code_bytes, code_tv, code_count, cls, table, count, total_segs,
+                            seg_rows, seg_start, own_seg, tv, num_vertices, tmpl, ranks, new_tv,
+                            new_alive, stats, stream);
+}
+
+// K2 under the counting rule: cls and tmpl as for
+// fpm_init_superstep_counting, the rest as for K2.
+extern "C" int fpm_continuation_superstep_counting(const void* adj, const void* alive_rev,
+                                                   const void* alive, const void* flag,
+                                                   const void* cls, const int64_t* table,
+                                                   int32_t count, int64_t total_segs,
+                                                   const void* seg_rows, const void* seg_start,
+                                                   const void* own_seg, const void* tv,
+                                                   int64_t num_vertices, const int64_t* tmpl,
+                                                   int32_t ranks, void* new_tv, void* new_alive,
+                                                   void* stats, void* stream) {
+    return continuation_entry<true>(adj, alive_rev, alive, flag, cls, table, count, total_segs,
+                                    seg_rows, seg_start, own_seg, tv, num_vertices, tmpl, ranks,
+                                    new_tv, new_alive, stats, stream);
 }

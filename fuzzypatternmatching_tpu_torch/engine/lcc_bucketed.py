@@ -23,18 +23,19 @@ In the default mode a superstep is one fused pass over every bucket
   reverse edge is alive and applies the same epilogue
   (``ops/lcc_superstep.py`` for the first two).
 
-Two search modes change the acceptance, as in the JAX engine, and run per
-bucket:
+Two search modes change the acceptance, as in the JAX engine:
 
 * counting (``counting=True``): candidate i also needs at least
   ``required[i, j]`` accepted neighbours of label class j (per-slot sender
-  class codes; row sums, per-segment sums for split hubs); after the
-  lookup ``gather_accept_or`` gives tn, accept and the send counts;
+  class codes, the planes' ``cls``; per-segment counts). Without edge
+  metadata its supersteps are K1 and K2 under the counting rule, one
+  launch each, in one ``fpm.lcc.count`` span;
 * edge metadata (``edge_meta``): a slot's metadata code selects a row of
   the allow table, and tn is accumulated separately per receiver bit from
   the parents that edge may deliver toward that bit. Its acceptance and
-  per-bit tn are not what ``gather_accept_or`` computes, so after
-  ``rev_alive_lookup`` this mode runs in plain torch.
+  per-bit tn are not what the fused kernels compute, so after
+  ``rev_alive_lookup`` this mode runs per bucket in plain torch
+  (``_per_bucket``), with ``_count_mask``'s class counts when counting too.
 
 tv is int32 holding the 16-bit candidate set; alive and the token-passing
 flags are bool over the flat slot space plus one always-dead pad slot.
@@ -54,17 +55,13 @@ from ..ops.lcc_fused import (
     bucket_views,
     build_planes,
     continuation_superstep,
+    count_mask,
     init_superstep,
     keep_mask_per_i,
     or_over_bits,
     segment_or,
 )
-from ..ops.lcc_superstep import (
-    alive_table,
-    gather_accept_or,
-    rev_alive_lookup,
-    row_or,
-)
+from ..ops.lcc_superstep import alive_table, rev_alive_lookup, row_or
 from ..pattern.pattern_graph import PatternGraph
 from ..utils import trace
 from ..utils.trace import to_device, to_host
@@ -253,8 +250,6 @@ class BucketedLccEngine:
             for j, cl in enumerate(class_labels):
                 class_pad[:v][lab == cl] = j + 1
             slot_cls = [class_pad[b.adj] for b in self.buckets]
-            # the class-count reductions of a bucket's ``_count_mask``
-            self._count_passes = int((self.required > 0).sum())
 
         # --- device planes -------------------------------------------------
         dev = self.device
@@ -267,10 +262,11 @@ class BucketedLccEngine:
             [b.adj.shape[1] for b in self.buckets], [b.rows for b in self.buckets],
             [b.seg_id for b in self.buckets], [b.seg_rows for b in self.buckets],
             [b.adj for b in self.buckets], [code_pad[b.adj] for b in self.buckets],
-            code_tv, v, num_ranks, dev,
+            code_tv, v, num_ranks, dev, cls=slot_cls if counting else None,
         )
         self._tmpl = Template(
-            tuple(self.adj_all), tuple(self.mand), tuple(self.opt), tuple(self.opt_min)
+            tuple(self.adj_all), tuple(self.mand), tuple(self.opt), tuple(self.opt_min),
+            None if self.required is None else tuple(map(tuple, self.required.tolist())),
         )
         self._code_tv = self._planes.code_tv
         # rev of every slot, bucket after bucket: one lookup launch covers
@@ -283,9 +279,7 @@ class BucketedLccEngine:
             dev,
         )
         self._dev = []
-        for b, views, meta, cls in zip(
-            self.buckets, bucket_views(self._planes), slot_meta, slot_cls
-        ):
+        for b, views, meta in zip(self.buckets, bucket_views(self._planes), slot_meta):
             self._dev.append(
                 _DeviceBucket(
                     rows=to_device(b.rows.astype(np.int64), dev),
@@ -296,7 +290,7 @@ class BucketedLccEngine:
                     own_rows=views.own_rows,
                     own_seg=views.own_seg,
                     meta=None if meta is None else to_device(meta, dev),
-                    cls=None if cls is None else to_device(cls, dev),
+                    cls=views.cls,
                 )
             )
 
@@ -305,52 +299,35 @@ class BucketedLccEngine:
     def _or_over_bits(self, tv: torch.Tensor) -> torch.Tensor:
         return or_over_bits(tv, self.adj_all)
 
-    def _keep_mask(self, tn: torch.Tensor) -> torch.Tensor:
-        return self._keep_mask_per_i([tn] * self.k)
-
     def _keep_mask_per_i(self, tn_list: list) -> torch.Tensor:
         return keep_mask_per_i(tn_list, self.mand, self.opt, self.opt_min)
 
     def _count_mask(self, d: _DeviceBucket, acc: list, n_seg: int):
-        """Counting mode: bit i set where candidate i heard at least
-        ``required[i, j]`` accepted senders of each label class j.
-        ``acc[i]`` is the bool [n, w] plane of slots accepted toward i;
-        counts are row sums, summed per segment for split hubs: one
-        reduction (a ``lcc_count_passes``) per (i, j) with a requirement."""
-        split = n_seg != d.adj.shape[0]
-        trace.count("lcc_count_passes", self._count_passes)
-        keep = torch.zeros(n_seg, dtype=torch.int32, device=d.adj.device)
-        of_class = {
-            j: d.cls == j + 1 for j in np.nonzero(self.required.any(axis=0))[0]
-        }
-        for i in range(self.k):
-            ok = torch.ones(n_seg, dtype=torch.bool, device=d.adj.device)
-            for j in range(self.required.shape[1]):
-                req = int(self.required[i, j])
-                if req <= 0:
-                    continue
-                cnt = (acc[i] & of_class[j]).sum(dim=1)
-                if split:
-                    cnt = torch.zeros(
-                        n_seg, dtype=cnt.dtype, device=cnt.device
-                    ).index_add_(0, d.seg_id, cnt)
-                ok = ok & (cnt >= req)
-            keep = keep | (ok.to(torch.int32) << i)
-        return keep
+        """Counting with edge metadata: ``count_mask`` over the bucket's
+        sender classes (``acc[i]``: the bool [n, w] plane of slots accepted
+        toward i)."""
+        return count_mask(acc, d.cls, self.required, d.seg_id, n_seg)
 
     def _superstep(self, tv, alive, tp_flag, *, init: bool):
         """One superstep over every bucket. Returns (tv, alive, tp_flag,
         stats) with stats = [av per rank | ae per rank | msg per rank |
-        died] as an int64 device tensor. The default mode is one fused
-        superstep (ops/lcc_fused.py); counting and edge metadata run per
-        bucket (``_per_bucket``), a counting superstep in one
-        ``fpm.lcc.count`` span."""
+        died] as an int64 device tensor. The default and the counting mode
+        are one fused superstep (ops/lcc_fused.py; the counting rule rides
+        on the planes' ``cls`` and the template's ``required``), a counting
+        superstep in one ``fpm.lcc.count`` span; edge metadata runs per
+        bucket (``_per_bucket``)."""
         if self.counting:
             trace.count("lcc_count_supersteps")
             with trace.span("fpm.lcc.count"):
-                return self._per_bucket(tv, alive, tp_flag, init=init)
+                if self.meta_allow is not None:
+                    return self._per_bucket(tv, alive, tp_flag, init=init)
+                return self._fused(tv, alive, tp_flag, init=init)
         if self.meta_allow is not None:
             return self._per_bucket(tv, alive, tp_flag, init=init)
+        return self._fused(tv, alive, tp_flag, init=init)
+
+    def _fused(self, tv, alive, tp_flag, *, init: bool):
+        """K1, or ``alive_table`` + ``rev_alive_lookup`` + K2."""
         if init:
             return init_superstep(self._planes, tv, self._tmpl)
         alive_rev = rev_alive_lookup(self._rev_flat, alive_table(alive))
@@ -359,11 +336,10 @@ class BucketedLccEngine:
         )
 
     def _per_bucket(self, tv, alive, tp_flag, *, init: bool):
-        """``_superstep`` of the counting and edge-metadata modes: plain
-        torch per bucket, ``gather_accept_or`` in a counting continuation."""
+        """``_superstep`` of the edge-metadata mode (with or without the
+        counting rule): plain torch per bucket."""
         dev = self.device
         r = self.num_ranks
-        meta = self.meta_allow is not None
         av = torch.zeros(r, dtype=torch.int64, device=dev)
         ae = torch.zeros(r, dtype=torch.int64, device=dev)
         msg = torch.zeros(r, dtype=torch.int64, device=dev)
@@ -385,55 +361,36 @@ class BucketedLccEngine:
                 p = self._code_tv[d.code.to(torch.int32)]
                 send_ok = p != 0
                 sendok_rows = send_ok.sum(dim=1, dtype=torch.int32)
-            elif meta:
+            else:
                 p = tv_table[d.adj]
                 send_ok = (p != 0) & alive_rev_flat[lo:hi].view(n, w)
                 p = torch.where(send_ok, p, 0)
                 sendok_rows = send_ok.sum(dim=1, dtype=torch.int32)
 
-            acc = None
-            if meta:
-                # per-slot allowed parents toward each receiver bit i (the
-                # slot's metadata code selects the allow row) and a separate
-                # tn per bit
-                code = d.meta.to(torch.int32)
-                mask = torch.zeros_like(p)
-                tn_list = []
-                acc = []
-                for i in range(self.k):
-                    allow_i = self.meta_allow[i][code]
-                    has_i = (((tv_seg >> i) & 1) != 0)[d.seg_id]
-                    mask = mask | torch.where(has_i[:, None], allow_i, 0)
-                    p_i = p & allow_i
-                    tn_i = row_or(p_i)
-                    tn_list.append(
-                        segment_or(tn_i, d.seg_id, n_seg) if split else tn_i
-                    )
-                    if self.counting:
-                        acc.append(p_i != 0)
-                accept = (p & mask) != 0
-                in_map = accept.any(dim=1)
-                if split:
-                    in_map = torch.zeros(
-                        n_seg, dtype=torch.int32, device=dev
-                    ).index_add_(0, d.seg_id, in_map.to(torch.int32)) > 0
-                new_tv_seg = tv_seg & self._keep_mask_per_i(tn_list)
-            else:  # counting
-                adj_mask_rows = self._or_over_bits(tv_seg)[d.seg_id]
-                if init:
-                    accept = (p & adj_mask_rows[:, None]) != 0
-                    pa = torch.where(accept, p, 0)
-                    tn_rows = row_or(pa)
-                else:
-                    alive_rev = alive_rev_flat[lo:hi].view(n, w)
-                    tn_rows, accept, sendok_rows = gather_accept_or(
-                        d.adj, alive_rev, adj_mask_rows, tv_table
-                    )
-                    pa = torch.where(accept, tv_table[d.adj], 0)
-                tn = segment_or(tn_rows, d.seg_id, n_seg) if split else tn_rows
-                in_map = tn != 0
-                new_tv_seg = tv_seg & self._keep_mask(tn)
-                acc = [(pa & self.adj_all[i]) != 0 for i in range(self.k)]
+            # per-slot allowed parents toward each receiver bit i (the slot's
+            # metadata code selects the allow row) and a separate tn per bit
+            code = d.meta.to(torch.int32)
+            mask = torch.zeros_like(p)
+            tn_list = []
+            acc = []
+            for i in range(self.k):
+                allow_i = self.meta_allow[i][code]
+                has_i = (((tv_seg >> i) & 1) != 0)[d.seg_id]
+                mask = mask | torch.where(has_i[:, None], allow_i, 0)
+                p_i = p & allow_i
+                tn_i = row_or(p_i)
+                tn_list.append(
+                    segment_or(tn_i, d.seg_id, n_seg) if split else tn_i
+                )
+                if self.counting:
+                    acc.append(p_i != 0)
+            accept = (p & mask) != 0
+            in_map = accept.any(dim=1)
+            if split:
+                in_map = torch.zeros(
+                    n_seg, dtype=torch.int32, device=dev
+                ).index_add_(0, d.seg_id, in_map.to(torch.int32)) > 0
+            new_tv_seg = tv_seg & self._keep_mask_per_i(tn_list)
             if self.counting:
                 new_tv_seg = new_tv_seg & self._count_mask(d, acc, n_seg)
 

@@ -64,6 +64,18 @@ _SIGNATURES = {
             _P, ctypes.c_int32, ctypes.c_int64, _P, _P, _P, _P, ctypes.c_int64, _P,
             ctypes.c_int32, _P, _P, _P, _P,
         ],
+        # the counting rule's: cls after the mode's own inputs, then the
+        # common tail (its template words with the requirement table)
+        "fpm_init_superstep_counting": [
+            _P, ctypes.c_int32, _P, ctypes.c_int64, _P,
+            _P, ctypes.c_int32, ctypes.c_int64, _P, _P, _P, _P, ctypes.c_int64, _P,
+            ctypes.c_int32, _P, _P, _P, _P,
+        ],
+        "fpm_continuation_superstep_counting": [
+            _P, _P, _P, _P, _P,
+            _P, ctypes.c_int32, ctypes.c_int64, _P, _P, _P, _P, ctypes.c_int64, _P,
+            ctypes.c_int32, _P, _P, _P, _P,
+        ],
     },
     "nlcc_frontier": {
         "fpm_expand_count": [

@@ -17,6 +17,15 @@ launch a superstep over every bucket:
     ``alive_rev`` plane of ``rev_alive_lookup``), then the same epilogue
     with the continuation's rules.
 
+Both also run under the counting rule (the JAX package's ``_superstep``
+:671-700), where the planes carry each slot's sender class (``cls``) and
+the template its requirement table (``required``): candidate i keeps its
+bit only if it heard ``required[i, j]`` accepted senders of each label
+class j. With both present the wrappers launch the kernels' counting
+instantiations, still one launch a superstep, and count a
+``lcc_count_fused`` (``utils/trace.py``); the twin counts its per-bucket
+class-count reductions as ``lcc_count_passes``.
+
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain torch twin (``*_reference``, the per-bucket code the engine ran
 before), a CUDA tensor to the kernel, with no fallback: a kernel that
@@ -38,9 +47,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from .lcc_superstep import _check_cuda, _on_cpu, gather_accept_or_reference, row_or
 
 MAX_TEMPLATE_VERTICES = 16  # tv and the kernels' tables hold 16 bits
+# Counting: label classes the kernels take, and the largest requirement
+# (the largest template degree).
+MAX_CLASSES = 16
+MAX_REQUIRED = 15
 # Buckets one launch takes (csrc/lcc_fused.cu, kMaxBuckets).
 MAX_BUCKETS = 32
 # Columns of SuperstepPlanes.table.
@@ -82,6 +96,34 @@ def keep_mask_per_i(tn_list: list, mand, opt, opt_min):
     return keep
 
 
+def count_mask(acc: list, cls: torch.Tensor, required, seg_id: torch.Tensor, n_seg: int):
+    """Counting mode: bit i set where candidate i heard at least
+    ``required[i, j]`` accepted senders of each label class j.
+    ``acc[i]`` is the bool [n, w] plane of slots accepted toward i and
+    ``cls`` the [n, w] senders' classes (1..L, 0 none); counts are row
+    sums, summed per segment for split hubs: one reduction (a
+    ``lcc_count_passes``) per (i, j) with a requirement."""
+    required = np.asarray(required)
+    split = n_seg != cls.shape[0]
+    trace.count("lcc_count_passes", int((required > 0).sum()))
+    keep = torch.zeros(n_seg, dtype=torch.int32, device=cls.device)
+    of_class = {j: cls == j + 1 for j in np.nonzero(required.any(axis=0))[0]}
+    for i in range(required.shape[0]):
+        ok = torch.ones(n_seg, dtype=torch.bool, device=cls.device)
+        for j in range(required.shape[1]):
+            req = int(required[i, j])
+            if req <= 0:
+                continue
+            cnt = (acc[i] & of_class[j]).sum(dim=1)
+            if split:
+                cnt = torch.zeros(
+                    n_seg, dtype=cnt.dtype, device=cnt.device
+                ).index_add_(0, seg_id, cnt)
+            ok = ok & (cnt >= req)
+        keep = keep | (ok.to(torch.int32) << i)
+    return keep
+
+
 def segment_or(values: torch.Tensor, seg_id: torch.Tensor, n_seg: int):
     """OR-combine int32 16-bit values per segment (split-hub partials)
     through a max over bit planes."""
@@ -101,12 +143,16 @@ def segment_or(values: torch.Tensor, seg_id: torch.Tensor, n_seg: int):
 class Template(NamedTuple):
     """The pattern's constants, one entry per template vertex (k <= 16):
     its adjacency set, mandatory and optional neighbour sets and the least
-    number of optional neighbours it must hear."""
+    number of optional neighbours it must hear. Counting:
+    ``required[i][j]``, the accepted senders of label class j + 1 that
+    vertex i must hear (a row per vertex, at most 16 classes, each 0..15);
+    None in the default mode."""
 
     adj_all: tuple
     mand: tuple
     opt: tuple
     opt_min: tuple
+    required: tuple | None = None
 
 
 class SuperstepPlanes(NamedTuple):
@@ -123,6 +169,8 @@ class SuperstepPlanes(NamedTuple):
     [segments] (segment -> vertex), ``seg_start`` int64 (for each split
     bucket in order, the first row of each of its segments and then n),
     ``own_rows`` / ``own_seg`` int64 (output rank of each row / segment).
+    Counting: ``cls`` uint8 [S], the label class of each slot's sender (1..L,
+    0 none and for padding); None in the default mode.
     """
 
     table: np.ndarray
@@ -136,6 +184,7 @@ class SuperstepPlanes(NamedTuple):
     own_seg: torch.Tensor
     num_vertices: int
     num_ranks: int
+    cls: torch.Tensor | None = None
 
     @property
     def num_slots(self) -> int:
@@ -152,6 +201,7 @@ class _BucketViews(NamedTuple):
     seg_rows: torch.Tensor  # [n_seg]
     own_rows: torch.Tensor  # [n]
     own_seg: torch.Tensor  # [n_seg]
+    cls: torch.Tensor | None  # [n, w], counting
 
 
 def bucket_views(planes: SuperstepPlanes):
@@ -166,17 +216,19 @@ def bucket_views(planes: SuperstepPlanes):
             planes.adj[lo:hi].view(n, w), planes.code[lo:hi].view(n, w),
             planes.seg_id[row : row + n], planes.seg_rows[seg_base:seg_hi],
             planes.own_rows[row : row + n], planes.own_seg[seg_base:seg_hi],
+            None if planes.cls is None else planes.cls[lo:hi].view(n, w),
         )
         row += n
 
 
 def build_planes(
     widths, rows, seg_id, seg_rows, adj, code, code_tv, num_vertices: int,
-    num_ranks: int, device,
+    num_ranks: int, device, cls=None,
 ) -> SuperstepPlanes:
     """The planes of an engine's buckets, from its host arrays: per bucket
     its width, its rows' vertex ids [n], segment ids [n], segment vertices
-    [n_seg], neighbour ids [n, w] and label codes [n, w], in slot order.
+    [n_seg], neighbour ids [n, w], label codes [n, w] and, counting, sender
+    classes [n, w] (``cls``), in slot order.
     A bucket with fewer segments than rows splits hubs over consecutive
     rows (``split``); the segments of every bucket are checked to be
     non-empty runs of consecutive rows, numbered in row order."""
@@ -213,6 +265,7 @@ def build_planes(
         own_seg=seg_rows_t % num_ranks,
         num_vertices=int(num_vertices),
         num_ranks=int(num_ranks),
+        cls=None if cls is None else flat(cls, np.uint8),
     )
 
 
@@ -221,8 +274,9 @@ def build_planes(
 
 def _superstep_reference(planes, tv, tmpl, *, init, alive=None, tp_flag=None,
                          alive_rev=None):
-    """The default-mode superstep bucket by bucket in plain torch: the
-    arithmetic of ``_superstep`` (the JAX package's ``:529-767``)."""
+    """The superstep bucket by bucket in plain torch: the arithmetic of
+    ``_superstep`` (the JAX package's ``:529-767``), with its counting rule
+    (``:671-700``) where the planes carry ``cls``."""
     dev = tv.device
     r = planes.num_ranks
     k = len(tmpl.adj_all)
@@ -246,13 +300,19 @@ def _superstep_reference(planes, tv, tmpl, *, init, alive=None, tp_flag=None,
             p = planes.code_tv[d.code.to(torch.int32)]
             sendok_rows = (p != 0).sum(dim=1, dtype=torch.int32)
             accept = (p & adj_mask_rows[:, None]) != 0
-            tn_rows = row_or(torch.where(accept, p, 0))
+            pa = torch.where(accept, p, 0)
+            tn_rows = row_or(pa)
         else:
             tn_rows, accept, sendok_rows = gather_accept_or_reference(
                 d.adj, alive_rev[lo:hi].view(n, w), adj_mask_rows, tv_table
             )
+            if d.cls is not None:
+                pa = torch.where(accept, tv_table[d.adj], 0)
         tn = segment_or(tn_rows, d.seg_id, n_seg) if n_seg != n else tn_rows
         new_tv_seg = tv_seg & keep_mask_per_i([tn] * k, tmpl.mand, tmpl.opt, tmpl.opt_min)
+        if d.cls is not None:
+            acc = [(pa & tmpl.adj_all[i]) != 0 for i in range(k)]
+            new_tv_seg = new_tv_seg & count_mask(acc, d.cls, tmpl.required, d.seg_id, n_seg)
         if init:
             in_map = tn != 0
             new_tv_seg = torch.where(in_map, new_tv_seg, 0)
@@ -344,6 +404,17 @@ def _check(what, planes, tmpl, tv, flags=()):
         raise ValueError(f"{what}: num_ranks must be at least 1")
     if tv.dtype != torch.int32 or tv.shape != (planes.num_vertices,):
         raise ValueError(f"{what}: tv must be int32 [{planes.num_vertices}]")
+    if (planes.cls is None) != (tmpl.required is None):
+        raise ValueError(f"{what}: the counting rule needs both cls and required")
+    if planes.cls is not None:
+        if planes.cls.dtype != torch.uint8 or planes.cls.shape != (slots,):
+            raise ValueError(f"{what}: cls must be uint8 [{slots}]")
+        req = np.asarray(tmpl.required)
+        if (req.ndim != 2 or req.shape[0] != k or req.shape[1] > MAX_CLASSES
+                or np.any(req < 0) or np.any(req > MAX_REQUIRED)):
+            raise ValueError(
+                f"{what}: required must be [{k}, at most {MAX_CLASSES}] of 0..{MAX_REQUIRED}"
+            )
     for name, t, size in flags:
         if t.dtype != torch.bool or t.shape != (size,):
             raise ValueError(f"{what}: {name} must be bool [{size}]")
@@ -378,12 +449,19 @@ def continuation_superstep(
 
 
 def _template_words(tmpl: Template) -> np.ndarray:
-    """k, then adj_all, mand, opt and opt_min padded to 16 entries each:
-    the layout the C entry points read."""
-    words = np.zeros(1 + 4 * MAX_TEMPLATE_VERTICES, dtype=np.int64)
-    words[0] = len(tmpl.adj_all)
+    """k, then adj_all, mand, opt and opt_min padded to 16 entries each,
+    and with a counting rule ``required`` padded to 16 x 16: the layout the
+    C entry points read."""
+    k, n = len(tmpl.adj_all), 1 + 4 * MAX_TEMPLATE_VERTICES
+    counting = tmpl.required is not None
+    words = np.zeros(n + (MAX_TEMPLATE_VERTICES * MAX_CLASSES if counting else 0), dtype=np.int64)
+    words[0] = k
     for j, xs in enumerate((tmpl.adj_all, tmpl.mand, tmpl.opt, tmpl.opt_min)):
         words[1 + j * MAX_TEMPLATE_VERTICES : 1 + j * MAX_TEMPLATE_VERTICES + len(xs)] = xs
+    if counting:
+        req = np.asarray(tmpl.required, dtype=np.int64)
+        table = words[n:].reshape(MAX_TEMPLATE_VERTICES, MAX_CLASSES)
+        table[:k, : req.shape[1]] = req
     return words
 
 
@@ -391,9 +469,12 @@ def _launch(kernel, planes, tmpl, tv, alive=None, tp_flag=None, alive_rev=None):
     from . import _build
 
     init = kernel == "init_superstep"
+    counting = planes.cls is not None
     flags = () if init else (alive, tp_flag, alive_rev)
     tensors = [planes.adj, planes.code, planes.code_tv, planes.seg_rows,
                planes.seg_start, planes.own_seg, tv, *flags]
+    if counting:
+        tensors.append(planes.cls)
     _check_cuda(kernel, *tensors)
     dev = tv.device
     s, r = planes.num_slots, planes.num_ranks
@@ -413,16 +494,22 @@ def _launch(kernel, planes, tmpl, tv, alive=None, tp_flag=None, alive_rev=None):
         new_tv.data_ptr(), new_alive.data_ptr(), stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    cls = (planes.cls.data_ptr(),) if counting else ()
     if init:
-        status = lib.fpm_init_superstep(
+        entry = lib.fpm_init_superstep_counting if counting else lib.fpm_init_superstep
+        status = entry(
             planes.code.data_ptr(), planes.code.element_size(), planes.code_tv.data_ptr(),
-            planes.code_tv.shape[0], *common,
+            planes.code_tv.shape[0], *cls, *common,
         )
     else:
-        status = lib.fpm_continuation_superstep(
+        entry = (lib.fpm_continuation_superstep_counting if counting
+                 else lib.fpm_continuation_superstep)
+        status = entry(
             planes.adj.data_ptr(), alive_rev.data_ptr(), alive.data_ptr(),
-            tp_flag.data_ptr(), *common,
+            tp_flag.data_ptr(), *cls, *common,
         )
     _build.check(status, kernel)
     launches[kernel] += 1
+    if counting:
+        trace.count("lcc_count_fused")
     return new_tv, new_alive, flag_out, stats

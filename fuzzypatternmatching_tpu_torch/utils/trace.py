@@ -43,14 +43,15 @@ import torch
 # lanes no message is counted for: in a nem hop after the first the lane
 # back to the token's parent, in a TDS hop after the first the lanes
 # that its sender-side rules drop. Under the counting LCC
-# (engine/lcc_bucketed.py): the supersteps its per-bucket branch ran
-# (``lcc_count_supersteps``, one ``fpm.lcc.count`` span each) and the
-# per-bucket (i, j) class-count reductions its ``_count_mask`` launched
-# (``lcc_count_passes``)
+# (engine/lcc_bucketed.py): its supersteps (``lcc_count_supersteps``, one
+# ``fpm.lcc.count`` span each), the per-bucket (i, j) class-count
+# reductions dispatched from Python (``lcc_count_passes``: the plain twin's
+# and the edge-metadata route's ``count_mask``, ops/lcc_fused.py) and the
+# supersteps run as one fused launch on the card (``lcc_count_fused``)
 COUNTERS = (
     "h2d_bytes", "d2h_bytes", "compact_builds", "compact_subset_hits",
     "compact_state_carries", "nlcc_dense_ptr_builds", "nlcc_device_walks",
-    "nlcc_device_lanes", "lcc_count_supersteps", "lcc_count_passes",
+    "nlcc_device_lanes", "lcc_count_supersteps", "lcc_count_passes", "lcc_count_fused",
 )
 
 

@@ -7,9 +7,11 @@ label-7 neighbours) and on the upstream tree itself.
   inside an LCC call span (``fpm.lcc.call`` or ``fpm.lcc.compact.call``),
   and counts one ``lcc_count_supersteps``: as many as the search's LP rows,
   on the compact route and the full plane, on every NLCC route.
-* ``lcc_count_passes`` counts each bucket's class-count reductions: the
-  template's (i, j) requirements per bucket per superstep.
-* The default mode opens no such span and counts 0 of both; with no
+* ``lcc_count_passes`` counts each bucket's class-count reductions
+  dispatched from Python, here the plain twin's: the template's (i, j)
+  requirements per bucket per superstep. ``lcc_count_fused`` counts the
+  supersteps run as one launch on the card, so 0 on the CPU.
+* The default mode opens no such span and counts 0 of all three; with no
   profiler recording, the counting mode keeps no span or counter and opens
   no range.
 * The counting search's results are the same with tracing on and off.
@@ -32,7 +34,7 @@ TWO_SEVENS = os.path.join(
     REPO, "benchmark", "templates", "rmat_log2_tree_pattern_0_two_sevens", "pattern"
 )
 CALLS = {"fpm.lcc.call", "fpm.lcc.compact.call"}
-KEYS = ("lcc_count_supersteps", "lcc_count_passes")
+KEYS = ("lcc_count_supersteps", "lcc_count_passes", "lcc_count_fused")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -92,12 +94,23 @@ def test_passes_per_bucket_and_superstep(configs, compact):
     with profiled():
         r = e.run()
     per_bucket = int((e.lcc.required > 0).sum())
-    assert e.lcc._count_passes == per_bucket
     steps = lp_rows(r)
     later = e._sub_cache[4] if compact else e.lcc
     want = per_bucket * (len(e.lcc.buckets) + (steps - 1) * len(later.buckets))
     assert r.counters["lcc_count_passes"] == want
     assert r.iterations == 1 and steps == e.pattern.diameter
+
+
+@pytest.mark.parametrize("compact", [True, False])
+def test_no_fused_count_on_the_cpu(configs, compact):
+    """On the CPU the counting supersteps run the plain twin: its class
+    counts are Python-side passes, and no superstep is a fused launch."""
+    e = engine(configs["two_sevens"], counting=True, compact=compact)
+    with profiled():
+        r = e.run()
+    assert r.counters["lcc_count_supersteps"] == lp_rows(r) > 0
+    assert r.counters["lcc_count_passes"] > 0
+    assert r.counters["lcc_count_fused"] == 0
 
 
 @pytest.mark.parametrize("corpus", ["two_sevens", "tree", "cycle"])

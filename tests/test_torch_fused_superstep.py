@@ -294,16 +294,16 @@ def test_twins_count_no_launches_on_cpu(graph, tree, tlb):
     assert st.alive.device.type == "cpu"
 
 
-@pytest.mark.parametrize("mode", ["default", "counting", "metadata"])
+@pytest.mark.parametrize("mode", ["default", "counting", "metadata", "counting_metadata"])
 def test_engine_superstep_goes_through_the_wrappers(graph, tree, tlb, monkeypatch, mode):
-    """The default mode's lcc_call makes one init_superstep and one
-    continuation_superstep a later superstep; counting and metadata keep
-    their own per-bucket supersteps."""
+    """The default and the counting mode's lcc_call make one init_superstep
+    and one continuation_superstep a later superstep; edge metadata, with
+    the counting rule or without, keeps its own per-bucket supersteps."""
     _, labels, gt = graph
     kw = {}
-    if mode == "counting":
+    if "counting" in mode:
         kw["counting"] = True
-    elif mode == "metadata":
+    if "metadata" in mode:
         allow = np.full((2, tree[1].vertex_count), 0xFFFF, dtype=np.uint32)
         kw["edge_meta"] = (allow, np.zeros(gt.num_edges, dtype=np.int64))
     pt = BucketedLccEngine(gt, labels, tree[1], device="cpu", max_width=16, **kw)
@@ -318,7 +318,7 @@ def test_engine_superstep_goes_through_the_wrappers(graph, tree, tlb, monkeypatc
         monkeypatch.setattr(lcc_bucketed, name, counted)
     pt.lcc_call(pt.init_state(), True)
     d = tree[1].diameter
-    want = (1, d - 1) if mode == "default" else (0, 0)
+    want = (0, 0) if "metadata" in mode else (1, d - 1)
     assert (calls["init_superstep"], calls["continuation_superstep"]) == want
 
 
