@@ -40,6 +40,9 @@ walk's own spans inside: ``engine/nlcc_device.py``) and ``fpm.nlcc.marks``
 (the outcome applied and the TP row counted), and any LCC phase it causes;
 ``fpm.state`` (each host read of the state), ``fpm.update`` (each upload
 of tv and marks) and ``fpm.result`` (the final read and the active sets).
+The bucketed engine opens ``fpm.pairs`` inside whichever of these reads
+the alive pairs off the device (``alive_pairs``), and counts the slots
+its supersteps run over (``lcc_slots``).
 
 The positional parameters are the JAX ``MatchEngine``'s, in its order;
 ``device`` is keyword-only. ``lcc_pallas`` is taken and ignored: in the JAX

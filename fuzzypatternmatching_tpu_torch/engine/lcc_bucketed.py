@@ -482,18 +482,20 @@ class BucketedLccEngine:
     def alive_pairs(self, state: BucketedState):
         """(row, col) int64 arrays of the alive slots in CSR row-major
         order: the alive slots found on the device, only their (row, col)
-        keys downloaded."""
+        keys downloaded, in one ``fpm.pairs`` span (none where the state
+        holds them already)."""
         if state.pairs_cache is not None:
             return state.pairs_cache
         v = self.num_vertices
-        keys = [torch.empty(0, dtype=torch.int64, device=self.device)]
-        for b, d in zip(self.buckets, self._dev):
-            n, w = b.adj.shape
-            sel = torch.nonzero(state.alive[b.slot_base : b.slot_base + n * w])
-            sel = sel.view(-1)
-            keys.append(d.rows[sel // w] * v + d.adj.view(-1)[sel])
-        # keys are unique: sorting them is CSR row-major order
-        k = to_host(torch.sort(torch.cat(keys)).values)
+        with trace.span("fpm.pairs"):
+            keys = [torch.empty(0, dtype=torch.int64, device=self.device)]
+            for b, d in zip(self.buckets, self._dev):
+                n, w = b.adj.shape
+                sel = torch.nonzero(state.alive[b.slot_base : b.slot_base + n * w])
+                sel = sel.view(-1)
+                keys.append(d.rows[sel // w] * v + d.adj.view(-1)[sel])
+            # keys are unique: sorting them is CSR row-major order
+            k = to_host(torch.sort(torch.cat(keys)).values)
         state.pairs_cache = (k // v, k % v)
         return state.pairs_cache
 
@@ -553,11 +555,12 @@ class BucketedLccEngine:
         n_steps: int | None = None,
     ):
         """Run ``n_steps`` supersteps (default: the pattern's diameter); the
-        first is the global init step when ``global_init_step``. Returns
-        (state, rows, died) with one (av, ae, msgs, per_rank) row per
-        superstep."""
+        first is the global init step when ``global_init_step``, each over
+        all ``num_slots`` slots (counted in ``lcc_slots``). Returns (state,
+        rows, died) with one (av, ae, msgs, per_rank) row per superstep."""
         if n_steps is None:
             n_steps = self.p.diameter
+        trace.count("lcc_slots", n_steps * self.num_slots)
         tv, alive, flag = state.tv, state.alive, state.tp_flag
         stats = []
         for step in range(n_steps):

@@ -47,11 +47,15 @@ import torch
 # ``fpm.lcc.count`` span each), the per-bucket (i, j) class-count
 # reductions dispatched from Python (``lcc_count_passes``: the plain twin's
 # and the edge-metadata route's ``count_mask``, ops/lcc_fused.py) and the
-# supersteps run as one fused launch on the card (``lcc_count_fused``)
+# supersteps run as one fused launch on the card (``lcc_count_fused``).
+# The bucketed engine's supersteps each add the slots of the engine that
+# ran them (``lcc_slots``: the full engine's every slot, a compact
+# sub-engine's its closure's), what the program launches over
 COUNTERS = (
     "h2d_bytes", "d2h_bytes", "compact_builds", "compact_subset_hits",
     "compact_state_carries", "nlcc_dense_ptr_builds", "nlcc_device_walks",
     "nlcc_device_lanes", "lcc_count_supersteps", "lcc_count_passes", "lcc_count_fused",
+    "lcc_slots",
 )
 
 

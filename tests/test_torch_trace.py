@@ -56,7 +56,7 @@ NAMES = {
     "fpm.lcc.compact", "fpm.lcc.compact.closure", "fpm.lcc.compact.call",
     "fpm.lcc.compact.back", "fpm.state", "fpm.update", "fpm.nlcc",
     "fpm.nlcc.csr", "fpm.nlcc.place", "fpm.nlcc.walk.host",
-    "fpm.nlcc.walk.device", "fpm.nlcc.marks", "fpm.result",
+    "fpm.nlcc.walk.device", "fpm.nlcc.marks", "fpm.result", "fpm.pairs",
 } | set(WALK)
 # where each span may open: the names of its possible parents
 PARENTS = {
@@ -76,6 +76,8 @@ PARENTS = {
     "fpm.result": {"fpm.search"},
     "fpm.update": {"fpm.search", "fpm.nlcc"},
     "fpm.state": {"fpm.search", "fpm.nlcc", "fpm.result"},
+    # the bucketed engine's pairs sweep, inside each read of a device state
+    "fpm.pairs": {"fpm.lcc.download", "fpm.state", "fpm.lcc.compact.back"},
     **{name: {"fpm.nlcc.walk.device"} for name in WALK},
 }
 CPU = torch.device("cpu")
