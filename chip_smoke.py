@@ -9,7 +9,9 @@ NVIDIA GPU:
      table (words and group summary) at several sizes and summary budgets,
      the lookup at widths 8..8192, and gather_accept_or at widths 8..8192
      (every lane mapping) with n = 0/1/33/1000, all at alive densities 0.5 %, 60 % and 100 %,
-     with pad sentinels and all-zero/all-one masks;
+     with pad sentinels and all-zero/all-one masks; map_alive on seeded
+     planes and slot maps (pad-heavy, every slot dead, alive slots off the
+     map), its plane, touched vertices and count;
   4. run the golden configurations tree_s13 and cycle_s13 (4 output ranks)
      through the torch MatchEngine and assert the committed anchors;
   5. run the benchmark search — R-MAT s21 (4-rank scrambled stream), degree
@@ -20,7 +22,8 @@ NVIDIA GPU:
      supersteps (init_superstep at least once, continuation_superstep at
      least 7 times, at most 2 launches of each a superstep), and
      gather_accept_or (which no engine route launches since the counting
-     mode fused its superstep too) not at all;
+     mode fused its superstep too) not at all; map_alive once in each timed
+     search (each maps its first LCC phase into the cached closure);
   6. the same search with compact=False (every superstep over all slots),
      on phase 5's engine with its compact continuation turned off;
   7. hold each kernel against its twin at the s21 shapes of a full-graph
@@ -28,7 +31,9 @@ NVIDIA GPU:
      state, and time kernel and twin with CUDA events; time the lookup
      again with rev sorted (the random-L2-sector check), and the library
      call that computes what pack_alive + rev_alive_lookup compute
-     (alive[rev], torch indexing; the port never calls it);
+     (alive[rev], torch indexing; the port never calls it); map_alive on
+     the post-init plane and the cached closure's slot map, against its
+     twin, timed beside its bytes bound;
   8. one search of each mode under torch.profiler: device time against
      wall time, and the largest device items;
   9. hold the NLCC walk kernels (expand_frontier, forward_winners) against
@@ -276,6 +281,9 @@ KERNELS = {
     # scan :813)
     "init_superstep": "fuzzypatternmatching_tpu/engine/lcc_bucketed.py:529",
     "continuation_superstep": "fuzzypatternmatching_tpu/engine/lcc_bucketed.py:529",
+    # the compact continuation's host lookup of the post-init alive set in
+    # its closure and the sub-engine planes built from it (not a kernel)
+    "map_alive": "fuzzypatternmatching_tpu/engine/driver.py:233-315",
 }
 WALK_KERNELS = ("expand_frontier", "forward_winners")
 FUSED_KERNELS = ("init_superstep", "continuation_superstep")
@@ -429,9 +437,43 @@ def compare_kernels_small(dev, errs):
                         errs["gather_accept_or"] = max(
                             errs["gather_accept_or"], max_err(g, r)
                         )
+    for kind in ("random", "pad_heavy", "all_dead", "outside"):
+        for n in (1, 3, 4, 10_001, 300_000):
+            for offset in (0, 1):
+                planes = map_case(n + len(kind), kind, n, offset, dev)
+                got = ops.map_alive(*planes)
+                torch.cuda.synchronize()
+                for g, r in zip(got, ops.map_alive_reference(*planes)):
+                    errs["map_alive"] = max(errs["map_alive"], max_err(g, r))
     check_errs(errs, "at small shapes")
     log(f"[3] kernels equal their twins (tables n 1..1e6 at G 32..2048; widths "
-        f"8..8192, n 0/1/33/1000; densities {DENSITIES}): {errs}")
+        f"8..8192, n 0/1/33/1000; densities {DENSITIES}; slot maps of 1..300,000 "
+        f"slots, aligned and not): {errs}")
+
+
+def map_case(seed, kind, n, offset, dev, v=3_000, density=0.3):
+    """map_alive's inputs on ``dev``: a full plane of S + 1 flags and an
+    injective map of ``n`` closure slots into it, a share of them pads (the
+    dead pad slot S), with their rows and columns, and tv over ``v``
+    vertices (a few live ones that no slot may touch); "outside" sets alive
+    slots off the map; ``offset`` 1 starts the map one element in (off 16
+    bytes)."""
+    rng = np.random.RandomState(seed)
+    s_full = max(40_000, 2 * n)
+    alive = rng.rand(s_full + 1) < (0.0 if kind == "all_dead" else density)
+    alive[s_full] = False
+    sub2full = rng.permutation(s_full)[: n + offset].astype(np.int32)
+    pads = rng.rand(n + offset) < (0.9 if kind == "pad_heavy" else 0.1)
+    sub2full[pads] = s_full
+    if kind == "outside":
+        off = np.setdiff1d(np.arange(s_full), sub2full)
+        alive[off[: len(off) // 2]] = True
+    row = rng.randint(0, v, size=n + offset).astype(np.int32)
+    col = rng.randint(0, v, size=n + offset).astype(np.int32)
+    row[pads] = col[pads] = 0
+    maps = [torch.from_numpy(a).to(dev)[offset:] for a in (sub2full, row, col)]
+    tv = np.where(rng.rand(v) < 0.002, rng.randint(1, 1 << 16, size=v), 0).astype(np.int32)
+    return (torch.from_numpy(alive).to(dev), *maps, torch.from_numpy(tv).to(dev))
 
 
 def timed_search(engine, anchors, what):
@@ -486,6 +528,7 @@ def run_s21(g, labels, pattern, constraints, dev, compact, engine=None):
             or max(launches[k] for k in FUSED_KERNELS) > 2 * steps):
         raise AssertionError(f"s21 compact={compact}: {steps} supersteps, launches {launches}")
     times = []
+    mapped = ops.launches["map_alive"]
     for i in range(3):
         r, dt, lp, tp = timed_search(engine, S21_ANCHORS, f"s21 compact={compact} run {i}")
         times.append(dt)
@@ -495,6 +538,11 @@ def run_s21(g, labels, pattern, constraints, dev, compact, engine=None):
             f"host loadavg {os.getloadavg()}")
     log(f"{tag} anchors OK on every run {S21_ANCHORS}; best {min(times):.4f} s = "
         f"{r.traversed_edges / min(times) / 1e6:.2f} M traversed edges/s")
+    # the warm search builds the closure; each timed one maps into it
+    launches["map_alive"] = (ops.launches["map_alive"] - mapped) / 3
+    if launches["map_alive"] != (1 if compact else 0):
+        raise AssertionError(f"s21 compact={compact}: map_alive launches {launches['map_alive']} "
+                             "a timed search")
     return engine, launches, r
 
 
@@ -661,6 +709,37 @@ def kernels_at_s21(lcc, errs):
     return results
 
 
+def map_alive_at_s21(engine, errs):
+    """Phase 7: map_alive on the s21 post-init alive plane and the cached
+    closure's slot map (what a search's first compact phase launches)
+    against its twin; the kernel's device time by CUDA-graph replay, the
+    twin's eager (its boolean-mask index reads a size back, which a graph
+    cannot hold), beside the bytes bound: per closure slot the 4-byte map
+    read, the 1-byte gather and the 1-byte write, per alive slot its row
+    and column, the touched plane zeroed and read, tv read and the stats."""
+    lcc, smap = engine.lcc, engine._sub_cache[5]
+    st, rows, _ = lcc.lcc_call(lcc.init_state(), True, n_steps=1)
+    args = (st.alive, smap.sub2full, smap.row, smap.col, st.tv)
+    got = ops.map_alive(*args)
+    want = ops.map_alive_reference(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        errs["map_alive"] = max(errs["map_alive"], max_err(g, r))
+    check_errs(errs, "at s21 (post-init, cached closure)")
+    n, alive = smap.sub2full.numel(), int(got[2][0])
+    if alive != rows[0][1]:
+        raise AssertionError(f"map_alive: {alive} alive slots mapped, the init superstep {rows[0][1]}")
+    bound = (6 * n + 8 * alive + 6 * lcc.num_vertices + 16) / HBM_BYTES_PER_MS
+    k1, k2 = time_cuda(lambda: ops.map_alive(*args)), time_cuda(lambda: ops.map_alive(*args))
+    p_ms = time_cuda(lambda: ops.map_alive_reference(*args), graph=False)
+    eager = time_cuda(lambda: ops.map_alive(*args), graph=False)
+    log(f"[7] post-init map_alive ({n} closure slots, {alive} alive, V {lcc.num_vertices}): "
+        f"kernel {k1:.4f}/{k2:.4f} ms, twin (eager) {p_ms:.4f} ms, bound {bound:.4f} ms "
+        f"(bytes), {100 * bound / ((k1 + k2) / 2):.1f} % of bound; eager kernel calls "
+        f"{eager:.4f} ms")
+    return {"map_alive": ((k1 + k2) / 2, p_ms, bound)}
+
+
 def profile_search(engine, tag, anchors=S21_ANCHORS, phase="[8]"):
     """Phase 8 (and 13): one search under torch.profiler; device busy share
     and the largest device items (kernel self time summed by name)."""
@@ -685,7 +764,8 @@ def profile_search(engine, tag, anchors=S21_ANCHORS, phase="[8]"):
         return
     ours = [e for e in items if any(k in e.key for k in (
         "pack_alive_kernel", "rev_alive_kernel", "gather_narrow4_kernel", "superstep_kernel",
-        "gather_wide_kernel", "gather_rowwise_kernel", "expand_count_kernel",
+        "gather_wide_kernel", "gather_rowwise_kernel", "map_alive_kernel",
+        "expand_count_kernel",
         "expand_write_kernel", "winner_insert_kernel", "winner_mark_kernel",
         "bit_plane_kernel", "plane_summary_kernel", "plane_count_kernel", "plane_write_kernel",
         "winner_hist_kernel", "winner_scan_kernel", "winner_scatter_kernel",
@@ -2618,6 +2698,7 @@ def main() -> int:
     engine, launches, _ = run_s21(g, labels, pattern, constraints, dev, True)
     _, launches_full, r_full = run_s21(g, labels, pattern, constraints, dev, False, engine)
     times = kernels_at_s21(engine.lcc, errs)["post-init"]
+    times.update(map_alive_at_s21(engine, errs))
     t0 = time.perf_counter()
     times.update(fused_at_s21(engine, errs))
     log(f"[27] the fused supersteps at s21 took {time.perf_counter() - t0:.1f} s")

@@ -19,8 +19,9 @@
 //   * gather_accept_or reads adj and the tv table only where alive_rev is
 //     set; elsewhere the slot's outputs are zero by definition.
 //
-// The multi-device plane's superstep has kernels of its own at the end of
-// the file (pack_sends and gather_payload).
+// The multi-device plane's superstep has kernels of its own near the end of
+// the file (pack_sends and gather_payload), and the compact route's first
+// LCC phase one at the end (map_alive).
 //
 // Plain C entry points (bound with ctypes): each launches on the stream it
 // is given, allocates nothing, does not synchronise, and returns
@@ -907,5 +908,122 @@ extern "C" int fpm_gather_payload(const void* revmap, const void* mask, const vo
         static_cast<const uint32_t*>(summary), static_cast<uint32_t>(bytes), group_log2,
         static_cast<int32_t*>(tn), static_cast<uint8_t*>(accept), static_cast<int32_t*>(sendok),
         bt);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// map_alive: the alive plane of the compact route's cached closure, read off
+// the full engine's plane on the device.
+//
+// Replaces no TPU kernel. The JAX package's driver finds the post-init alive
+// set in its compact closure on the host (fuzzypatternmatching_tpu/engine/
+// driver.py:233-315: the alive pairs downloaded and looked up, the
+// sub-engine's planes built and uploaded, the live vertices tested against
+// the pairs' rows). Here the cached closure keeps sub2full, the full
+// engine's slot of each closure slot (a pad slot maps to the full engine's
+// dead pad slot), and the row and column of each. One pass over the closure's
+// slots writes out = alive[sub2full], counts the slots it wrote alive (a warp
+// sum, one atomic a warp) and marks touched[row] and touched[col] of each;
+// a second pass over the vertices raises lone where a vertex with tv != 0
+// is not touched (a warp vote, one store a warp that finds one). The count
+// equals the full plane's alive count exactly where every alive slot lies
+// inside the closure: the caller tests that, and falls back to the host
+// lookup where it does not hold.
+//
+// Bound by bytes: per closure slot a 4-byte map read, a 1-byte gather from
+// the full plane and a 1-byte write; per alive slot its row and column and
+// two touched bytes; per vertex its 4-byte tv and its touched byte, read
+// once. A thread of the first pass takes 4 slots a step: one 16-byte map
+// load (evict-first: it is read once) and one 4-byte store where aligned,
+// so its four gathers are in flight together.
+
+namespace {
+
+template <bool kVec>
+__global__ void map_alive_kernel(const uint8_t* __restrict__ alive,
+                                 const int32_t* __restrict__ sub2full,
+                                 const int32_t* __restrict__ row,
+                                 const int32_t* __restrict__ col, int64_t n,
+                                 uint8_t* __restrict__ out, uint8_t* __restrict__ touched,
+                                 unsigned long long* __restrict__ count) {
+    const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x * 4;
+    // base is the same for every thread of a block, so each warp runs the
+    // loop (and its warp sum) the same number of times
+    for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x * 4; base < n;
+         base += step) {
+        const int64_t first = base + static_cast<int64_t>(threadIdx.x) * 4;
+        const bool whole = kVec && first + 4 <= n;
+        int32_t f[4];
+        if (whole) {
+            const int4 v = __ldcs(reinterpret_cast<const int4*>(sub2full + first));
+            f[0] = v.x;
+            f[1] = v.y;
+            f[2] = v.z;
+            f[3] = v.w;
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) f[k] = first + k < n ? __ldcs(sub2full + first + k) : -1;
+        }
+        uint32_t a[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[k] = f[k] >= 0 ? (__ldg(alive + f[k]) != 0 ? 1u : 0u) : 0u;
+        if (whole) {
+            *reinterpret_cast<uint32_t*>(out + first) = a[0] | (a[1] << 8) | (a[2] << 16) | (a[3] << 24);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                if (first + k < n) out[first + k] = static_cast<uint8_t>(a[k]);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            if (a[k] != 0) {
+                touched[__ldg(row + first + k)] = 1;
+                touched[__ldg(col + first + k)] = 1;
+            }
+        }
+        const unsigned total = __reduce_add_sync(kFull, a[0] + a[1] + a[2] + a[3]);
+        if ((threadIdx.x & 31u) == 0 && total != 0) {
+            atomicAdd(count, static_cast<unsigned long long>(total));
+        }
+    }
+}
+
+__global__ void lone_kernel(const int32_t* __restrict__ tv, const uint8_t* __restrict__ touched,
+                            int64_t v, unsigned long long* __restrict__ lone) {
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    bool mine = false;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < v;
+         i += stride) {
+        mine = mine || (__ldcs(tv + i) != 0 && touched[i] == 0);
+    }
+    // every lane leaves the loop before the vote
+    if (__any_sync(kFull, mine) && (threadIdx.x & 31u) == 0) *lone = 1ull;
+}
+
+}  // namespace
+
+// out [n] and touched [v] bool, stats two int64 (the alive slots of out,
+// then 1 where a vertex with tv != 0 is untouched) that the caller zeroed,
+// as touched; every sub2full entry indexes alive, every row and col of a
+// slot that maps to an alive one indexes touched
+extern "C" int fpm_map_alive(const void* alive, const void* sub2full, const void* row,
+                             const void* col, int64_t n, const void* tv, int64_t v,
+                             void* out, void* touched, void* stats, void* stream) {
+    if (n < 0 || v <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto* s = static_cast<unsigned long long*>(stats);
+    if (n > 0) {
+        auto kernel = aligned(sub2full, 16) && aligned(out, 4) ? map_alive_kernel<true>
+                                                               : map_alive_kernel<false>;
+        kernel<<<grid_for((n + 3) / 4, kThreads), kThreads, 0, st>>>(
+            static_cast<const uint8_t*>(alive), static_cast<const int32_t*>(sub2full),
+            static_cast<const int32_t*>(row), static_cast<const int32_t*>(col), n,
+            static_cast<uint8_t*>(out), static_cast<uint8_t*>(touched), s);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    lone_kernel<<<grid_for(v, kThreads), kThreads, 0, st>>>(
+        static_cast<const int32_t*>(tv), static_cast<const uint8_t*>(touched), v, s + 1);
     return static_cast<int>(cudaGetLastError());
 }

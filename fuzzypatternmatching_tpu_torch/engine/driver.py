@@ -33,7 +33,9 @@ the result (``utils/trace.py``): ``fpm.search`` around the whole run;
 ``fpm.lcc`` around each LCC phase, with ``fpm.lcc.call`` (an LCC call on
 the full engine, its stats read included), ``fpm.lcc.download`` (the
 state's tv and alive pairs) and ``fpm.lcc.compact`` (the compact
-continuation: ``.closure``, ``.call``, ``.back``); ``fpm.nlcc`` around
+continuation: ``.closure``, ``.call``, ``.back``; a search's first phase maps
+the init superstep's alive plane into the cached closure on the device and
+downloads nothing, counted in ``compact_device_maps``); ``fpm.nlcc`` around
 each constraint, with ``fpm.nlcc.csr``, ``fpm.nlcc.place``,
 ``fpm.nlcc.walk.host`` or ``fpm.nlcc.walk.device`` (with the device
 walk's own spans inside: ``engine/nlcc_device.py``) and ``fpm.nlcc.marks``
@@ -55,14 +57,17 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..graph.csr import Graph, from_edges
+from ..ops.lcc_superstep import map_alive
 from ..pattern.nonlocal_constraint import NonLocalConstraint
 from ..pattern.pattern_graph import PatternGraph
 from ..utils import trace
+from ..utils.trace import to_device, to_host
 from .lcc import LccEngine
 from .lcc_bucketed import BucketedLccEngine, BucketedState
 from .nlcc import (
@@ -111,6 +116,18 @@ class _HostState:
             np.asarray(tv).astype(np.uint32), self.arow, self.acol, marks,
             self.sub, self.sub_state,
         )
+
+
+class _SlotMap(NamedTuple):
+    """The cached closure's slots in the full bucketed engine, on the
+    device, int32 [the sub-engine's num_slots + 1] each: ``sub2full`` the
+    full engine's slot of each closure slot (its dead pad slot S for a pad
+    slot, and for a key the graph lacks), ``row`` and ``col`` the slot's
+    vertices (0 for a pad slot). What ``map_alive`` reads."""
+
+    sub2full: torch.Tensor
+    row: torch.Tensor
+    col: torch.Tensor
 
 
 class MatchEngine:
@@ -236,9 +253,11 @@ class MatchEngine:
         # the compact closure needs the full edge_row/cols arrays, which a
         # lazily-opened GraphDb lacks
         self._compact_engine = compact and self._fast and isinstance(graph, Graph)
-        # (fp, keys, union, alive_sub_eids, sub): the compact closure and its
-        # engine, keyed on the alive set it was built for; it also serves any
-        # alive set inside ``union`` (``_closure``)
+        # (fp, keys, union, alive_sub_eids, sub, slot map): the compact
+        # closure and its engine, keyed on the alive set it was built for; it
+        # also serves any alive set inside ``union`` (``_closure``), and
+        # through the slot map (None beside a mesh engine) a search's first
+        # phase on the device (``_mapped_call``)
         self._sub_cache: tuple | None = None
         self._edge_keys: np.ndarray | None = None
         # per-constraint token-source label candidates (labels never change)
@@ -316,34 +335,90 @@ class MatchEngine:
             died_any = died_any or d1
             steps_left -= 1
         if steps_left > 0:
-            if isinstance(state, _HostState):
-                tv, arow, acol = state.tv, state.arow, state.acol
-            else:
-                with trace.span("fpm.lcc.download"):
-                    tv = self.lcc.tv_host(state)
-                    arow, acol = self.lcc.alive_pairs(state)
-            if len(arow) == 0 or len(arow) > self.graph.num_edges // 4:
-                with trace.span("fpm.lcc.call"):
-                    if isinstance(state, _HostState):
-                        # a compact phase's output lies inside its input (at
-                        # most E/4), so only an empty alive set gets here
-                        state = self._state_from_pairs(tv, arow, acol, state.marks)
-                    state, r2, d2 = self.lcc.lcc_call(
-                        state, False, n_steps=steps_left
-                    )
-                rows_all += r2
-                died_any = died_any or d2
-            else:
-                with trace.span("fpm.lcc.compact"):
-                    state, r2, d2 = self._compact_call(
-                        tv, arow, acol, steps_left, tp_mark_eids,
-                        carried=state if isinstance(state, _HostState) else None,
-                    )
-                rows_all += r2
-                died_any = died_any or d2
+            out = None
+            if global_init and not tp_mark_eids:
+                out = self._mapped_call(state, r1, steps_left)
+            if out is None:
+                out = self._host_call(state, steps_left, tp_mark_eids)
+            state, r2, d2 = out
+            rows_all += r2
+            died_any = died_any or d2
         dt = (time.perf_counter() - t0) / max(len(rows_all), 1)
         self._emit_lp_rows(rows_all, dt, itr, result)
         return state, died_any
+
+    def _host_call(self, state, steps_left, tp_mark_eids):
+        """The supersteps after the init one from the state's alive pairs on
+        the host: a device state's downloaded, a host state's read in
+        place; on the full engine where the alive set is empty or above
+        E/4, else on the compact closure (``_compact_call``)."""
+        if isinstance(state, _HostState):
+            tv, arow, acol = state.tv, state.arow, state.acol
+        else:
+            with trace.span("fpm.lcc.download"):
+                tv = self.lcc.tv_host(state)
+                arow, acol = self.lcc.alive_pairs(state)
+        if len(arow) == 0 or len(arow) > self.graph.num_edges // 4:
+            with trace.span("fpm.lcc.call"):
+                if isinstance(state, _HostState):
+                    # a compact phase's output lies inside its input (at
+                    # most E/4), so only an empty alive set gets here
+                    state = self._state_from_pairs(tv, arow, acol, state.marks)
+                return self.lcc.lcc_call(state, False, n_steps=steps_left)
+        with trace.span("fpm.lcc.compact"):
+            return self._compact_call(
+                tv, arow, acol, steps_left, tp_mark_eids,
+                carried=state if isinstance(state, _HostState) else None,
+            )
+
+    def _mapped_call(self, state, init_rows, steps_left):
+        """A search's first compact phase from the init superstep's device
+        state, with nothing downloaded, looked up or built on the host: the
+        alive count is the init superstep's own (``ae`` of its stats row),
+        the sub-engine's alive plane is the full engine's read through the
+        cached closure's slot map (``map_alive``), tv is the full state's on
+        the device (the sub-engine numbers vertices as the graph does) and
+        the flag plane is zero (a first phase has no marks). The map writes
+        every alive slot exactly where the alive set lies inside the cached
+        closure; else, and where the cache holds no map or the count is
+        outside the compact route, None: the host route (``_host_call``)
+        runs, and builds a closure where it must."""
+        cache = self._sub_cache
+        if cache is None or cache[5] is None:
+            return None
+        n_alive = sum(row[1] for row in init_rows)
+        if not 0 < n_alive <= self.graph.num_edges // 4:
+            return None
+        sub, smap = cache[4], cache[5]
+        with trace.span("fpm.lcc.compact"):
+            with trace.span("fpm.lcc.compact.closure"):
+                # the alive slots written, and whether a live vertex touches
+                # none (the died flag, as in _compact_call), in one host read
+                alive, _, stats = map_alive(
+                    state.alive, smap.sub2full, smap.row, smap.col, state.tv
+                )
+                flag = torch.zeros_like(alive)
+                mapped, lone = to_host(stats).tolist()
+                if mapped != n_alive:
+                    return None
+            trace.count("compact_device_maps")
+            with trace.span("fpm.lcc.compact.call"):
+                sub_state, rows, died = sub.lcc_call(
+                    BucketedState(state.tv, alive, flag), False, n_steps=steps_left
+                )
+            with trace.span("fpm.lcc.compact.back"):
+                return self._host_state_of(sub, sub_state), rows, died or bool(lone)
+
+    @staticmethod
+    def _host_state_of(sub, sub_state) -> _HostState:
+        """The driver's host state of a compact phase's output: the
+        sub-engine's tv and alive pairs as they come (the sub-engine starts
+        alive only on graph edges and alive only shrinks), no marks, and
+        the sub-engine and its state beside them."""
+        a2r, a2c = sub.alive_pairs(sub_state)
+        return _HostState(
+            sub.tv_host(sub_state), a2r, a2c, np.empty(0, np.int64), sub, sub_state
+        )
 
     def _compact_call(self, tv, arow, acol, steps_left, tp_mark_eids, carried=None):
         """``steps_left`` supersteps on the SYMMETRIC CLOSURE of the alive
@@ -383,13 +458,7 @@ class MatchEngine:
             touched[acol] = True
             if ((tv != 0) & ~touched).any():
                 died = True
-            # the sub-engine starts alive only on the input pairs and alive
-            # only shrinks, so its alive pairs are edges of the graph
-            a2r, a2c = sub.alive_pairs(sub_state)
-            host = _HostState(
-                sub.tv_host(sub_state), a2r, a2c, np.empty(0, np.int64), sub, sub_state
-            )
-            return host, rows, died
+            return self._host_state_of(sub, sub_state), rows, died
 
     def _marks_in_closure(self, union, tp_mark_eids):
         """The TP marks (CSR edge ids) as edge ids of the closure whose keys
@@ -418,7 +487,7 @@ class MatchEngine:
         cache = self._sub_cache
         if cache is not None:
             if cache[0] == fp and np.array_equal(keys, cache[1]):
-                return cache[2:]
+                return cache[2:5]
             union = cache[2]
             # keys and union are sorted: each key's position in union
             pos = np.searchsorted(union, keys)
@@ -447,8 +516,29 @@ class MatchEngine:
         # per-slot aliveness = membership in the original set
         pos = np.minimum(np.searchsorted(keys, union), len(keys) - 1)
         alive_sub_eids = np.nonzero(keys[pos] == union)[0]
-        self._sub_cache = (fp, keys, union, alive_sub_eids, sub)
-        return self._sub_cache[2:]
+        self._sub_cache = (fp, keys, union, alive_sub_eids, sub, self._slot_map(union, sub))
+        return self._sub_cache[2:5]
+
+    def _slot_map(self, union, sub) -> _SlotMap | None:
+        """The slot map of the closure ``sub`` over the sorted keys ``union``
+        (sub edge e is union[e]) into the full engine, for ``_mapped_call``;
+        None where the full engine is not a bucketed one (a mesh's states
+        are not one slot plane)."""
+        full = self.lcc
+        if not isinstance(full, BucketedLccEngine):
+            return None
+        vv = np.uint64(self.graph.num_vertices)
+        ek = self._edge_keys_cached()
+        pos = np.minimum(np.searchsorted(ek, union), len(ek) - 1)
+        n = sub.num_slots + 1
+        sub2full = np.full(n, full.num_slots, dtype=np.int32)
+        row = np.zeros(n, dtype=np.int32)
+        col = np.zeros(n, dtype=np.int32)
+        at = sub._edge_to_slot
+        sub2full[at] = np.where(ek[pos] == union, full._edge_to_slot[pos], full.num_slots)
+        row[at] = union // vv
+        col[at] = union % vv
+        return _SlotMap(*(to_device(a, self.device) for a in (sub2full, row, col)))
 
     def _sync(self) -> None:
         """Wait for the LCC engine's devices before a clock read."""

@@ -48,6 +48,9 @@ _SIGNATURES = {
             _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int32, _P, _P, _P, _P,
             ctypes.c_int32, _P,
         ],
+        "fpm_map_alive": [
+            _P, _P, _P, _P, ctypes.c_int64, _P, ctypes.c_int64, _P, _P, _P, _P,
+        ],
     },
     "lcc_fused": {
         # code, code_bytes, code_tv, code_count, then the common tail

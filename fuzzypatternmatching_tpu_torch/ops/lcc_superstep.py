@@ -18,6 +18,11 @@ nvcc at first use (``ops/_build.py``):
     ``sends_table`` (``pack_sends``) packs the words that send into an
     ``AliveTable``, and one gather over all of a shard's ELL buckets reads
     through it.
+  * ``map_alive``: the compact route's cached closure's alive plane read
+    off the full engine's plane through the closure's slot map, with the
+    alive count, the vertices the alive slots touch and whether a live
+    vertex is left untouched (no TPU kernel: the JAX driver does this on
+    the host).
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain torch twin (``*_reference``), a CUDA tensor to the kernel. On the
@@ -39,7 +44,7 @@ import torch
 
 launches = {
     "pack_alive": 0, "rev_alive_lookup": 0, "gather_accept_or": 0,
-    "pack_sends": 0, "gather_accept_or_payload": 0,
+    "pack_sends": 0, "gather_accept_or_payload": 0, "map_alive": 0,
 }
 
 # The group summary must fit this many bytes of shared memory in the lookup
@@ -426,3 +431,61 @@ def gather_accept_or_payload(
     _build.check(status, "gather_accept_or_payload")
     launches["gather_accept_or_payload"] += 1
     return tn, accept, sendok
+
+
+# -- the compact route's first LCC phase -------------------------------------
+
+
+def map_alive_reference(
+    alive: torch.Tensor, sub2full: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+    tv: torch.Tensor,
+):
+    """Plain twin of :func:`map_alive`."""
+    out = alive[sub2full]
+    touched = torch.zeros(tv.shape[0], dtype=torch.bool, device=alive.device)
+    touched[row[out]] = True
+    touched[col[out]] = True
+    lone = ((tv != 0) & ~touched).any()
+    return out, touched, torch.stack([out.sum(dtype=torch.int64), lone.to(torch.int64)])
+
+
+def map_alive(
+    alive: torch.Tensor, sub2full: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+    tv: torch.Tensor,
+):
+    """A plane of flags read through a slot map, and the vertices its set
+    flags touch: ``alive`` bool [S + 1], the full engine's alive plane;
+    ``sub2full`` int32 [n], each closure slot's full-engine slot (below
+    S + 1); ``row`` and ``col`` int32 [n], each closure slot's row and
+    column vertex (below V wherever the slot maps to an alive one); ``tv``
+    int32 [V]. Returns, on the device and read nothing back: out bool [n] =
+    ``alive[sub2full]``; touched bool [V], the rows and columns of the slots
+    ``out`` holds alive; stats int64 [2], the alive slots of ``out`` and 1
+    where a vertex with ``tv != 0`` is not touched (else 0)."""
+    if alive.dtype != torch.bool or alive.dim() != 1:
+        raise ValueError("map_alive: alive must be a 1-D bool tensor")
+    if any(t.dtype != torch.int32 or t.dim() != 1 for t in (sub2full, row, col, tv)):
+        raise ValueError("map_alive: sub2full, row, col and tv must be 1-D int32 tensors")
+    if not sub2full.shape == row.shape == col.shape:
+        raise ValueError("map_alive: sub2full, row and col differ in length")
+    if tv.numel() == 0:
+        raise ValueError("map_alive: tv is empty")
+    if _on_cpu("map_alive", alive):
+        return map_alive_reference(alive, sub2full, row, col, tv)
+    from . import _build
+
+    _check_cuda("map_alive", alive, sub2full, row, col, tv)
+    dev = alive.device
+    n = sub2full.numel()
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    touched = torch.zeros(tv.numel(), dtype=torch.bool, device=dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    lib = _build.library("lcc_superstep")
+    status = lib.fpm_map_alive(
+        alive.data_ptr(), sub2full.data_ptr(), row.data_ptr(), col.data_ptr(), n,
+        tv.data_ptr(), tv.numel(), out.data_ptr(), touched.data_ptr(), stats.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(status, "map_alive")
+    launches["map_alive"] += 1
+    return out, touched, stats

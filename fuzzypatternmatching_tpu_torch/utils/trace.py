@@ -35,7 +35,9 @@ import torch
 # phases that cache served with the closure of another alive set, one
 # that contains theirs (``compact_subset_hits``), the LCC phases that
 # started from the previous phase's sub-engine state on the device, with
-# no closure lookup (``compact_state_carries``), dense V + 1 row
+# no closure lookup (``compact_state_carries``), the first LCC phases that
+# read the init superstep's alive plane into the cached closure on the
+# device (``compact_device_maps``: no download, no lookup), dense V + 1 row
 # pointers of the NLCC's AliveCsr built (engine/nlcc.py), the constraint
 # runs MatchEngine placed on the device NLCC, and the lanes (token, alive
 # neighbour) that DeviceNlcc's expand_frontier calls took in
@@ -53,7 +55,7 @@ import torch
 # sub-engine's its closure's), what the program launches over
 COUNTERS = (
     "h2d_bytes", "d2h_bytes", "compact_builds", "compact_subset_hits",
-    "compact_state_carries", "nlcc_dense_ptr_builds", "nlcc_device_walks",
+    "compact_state_carries", "compact_device_maps", "nlcc_dense_ptr_builds", "nlcc_device_walks",
     "nlcc_device_lanes", "lcc_count_supersteps", "lcc_count_passes", "lcc_count_fused",
     "lcc_slots",
 )

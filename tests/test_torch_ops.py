@@ -250,9 +250,12 @@ def test_twins_count_no_launches_on_cpu():
             torch.from_numpy(adj.reshape(-1)), torch.from_numpy(mask), payload, [(8, 4)],
             sends=sends,
         )
+    idx = torch.from_numpy(rev.reshape(-1))
+    ops.map_alive(torch.from_numpy(alive), idx, idx, idx,
+                  torch.zeros(len(alive), dtype=torch.int32))
     assert ops.launches == {
         "pack_alive": 0, "rev_alive_lookup": 0, "gather_accept_or": 0,
-        "pack_sends": 0, "gather_accept_or_payload": 0,
+        "pack_sends": 0, "gather_accept_or_payload": 0, "map_alive": 0,
     }
 
 

@@ -181,7 +181,10 @@ def test_span_tree(tree13, cycle13, corpus, compact, mode):
 def test_compact_builds_first_search_only(tree13, cycle13, corpus, carries):
     """The first LCC phase builds the closure; the cycle's later phases,
     whose alive sets lie inside it, start from the previous phase's state
-    on the device and look no closure up."""
+    on the device and look no closure up. The next search's first phase
+    maps the init superstep's alive plane into the cached closure on the
+    device: its spans are the first search's without the download and the
+    pairs sweep inside it."""
     e = engine(tree13 if corpus == "tree" else cycle13)
     with profiled():
         first, second = e.run(), e.run()
@@ -190,7 +193,13 @@ def test_compact_builds_first_search_only(tree13, cycle13, corpus, carries):
     assert first.counters["compact_subset_hits"] == second.counters["compact_subset_hits"] == 0
     assert (first.counters["compact_state_carries"]
             == second.counters["compact_state_carries"] == carries)
-    assert [s.name for s in first.spans] == [s.name for s in second.spans]
+    assert first.counters["compact_device_maps"] == 0
+    assert second.counters["compact_device_maps"] == 1
+    down = [i for i, s in enumerate(first.spans) if s.name == "fpm.lcc.download"]
+    assert len(down) == 1
+    kept = [s.name for s in first.spans if s.name != "fpm.lcc.download"
+            and first.spans[s.parent].name != "fpm.lcc.download"]
+    assert kept == [s.name for s in second.spans]
 
 
 @pytest.mark.parametrize("corpus,phases", [("tree", 1), ("cycle", 3)])
