@@ -44,7 +44,24 @@ walk's own spans inside: ``engine/nlcc_device.py``) and ``fpm.nlcc.marks``
 of tv and marks) and ``fpm.result`` (the final read and the active sets).
 The bucketed engine opens ``fpm.pairs`` inside whichever of these reads
 the alive pairs off the device (``alive_pairs``), and counts the slots
-its supersteps run over (``lcc_slots``).
+its supersteps run over (``lcc_slots``). A closure built on a cache miss
+opens ``fpm.lcc.compact.build`` inside ``.closure`` (``_closure``), with
+``.keys`` (the alive keys' symmetric union and its rows and columns),
+``.graph`` (``from_edges`` over it, and its edge metadata), the
+sub-engine's ``fpm.build.lcc`` (``engine/lcc_bucketed.py``), ``.alive``
+(the alive set's edge ids in it) and ``.slot_map`` (``_slot_map``, with
+the graph's edge keys where they are first built).
+
+The constructor is recorded on the host clock, and so is an engine's
+first search where no profiler records it (``utils/trace.py``: ``build``,
+``search``; ``setup_records``): ``fpm.build`` around the
+constructor, its own time the labels, the edge metadata, the compact
+test and the token-source candidates, and one device synchronise at its
+end, so that it ends once the planes have landed; inside it
+``fpm.build.lcc`` (the bucketed engine's, with its ``.layout``,
+``.codes`` and ``.planes``) and ``fpm.build.nlcc`` (the ``DeviceNlcc``
+or ``ShardedNlcc`` constructor). The first search's record holds the
+spans above, its closure's build among them.
 
 The positional parameters are the JAX ``MatchEngine``'s, in its order;
 ``device`` is keyword-only. ``lcc_pallas`` is taken and ignored: in the JAX
@@ -163,108 +180,116 @@ class MatchEngine:
                 "a lazily-opened GraphDb (storage.open_db) requires "
                 "lcc_engine='sharded'; other engines need storage.load"
             )
-        if sharded and mesh is None:
-            from ..utils.dist import build_mesh
+        # the constructor's spans, recorded on the host clock (utils/trace.py);
+        # it ends once the device holds the planes
+        with trace.build(id(self)):
+            if sharded and mesh is None:
+                from ..utils.dist import build_mesh
 
-            mesh = build_mesh(device=device)
-        if sharded and mesh.spans_processes:
-            raise NotImplementedError(
-                f"{mesh}: the match loop is single-controller, as in the JAX "
-                "package: it reads the whole LCC state on the host between "
-                "calls (the compact continuation, the NLCC placement and "
-                "walks), and a mesh across processes holds it in several "
-                "processes. Across processes only the LCC data plane runs "
-                "(parallel/sharded.py: init_state + lcc_call; "
-                "cli/sharded_lcc_demo.py)"
-            )
-        # the mesh's first device hosts the driver's own device work (the
-        # compact sub-engine)
-        self.device = mesh.devices[0] if sharded else torch.device(device)
-        self.superstep_timing = superstep_timing
-        self.graph = graph
-        self.labels = np.asarray(labels, dtype=np.uint64)
-        self.pattern = pattern
-        self.constraints = constraints
-        self.num_ranks = num_ranks
-        self.source_batch = source_batch
-        self.counting = counting
-        # edge-metadata matching is active iff BOTH the graph's edge data
-        # and the pattern's edge data are present: (vals, allow, code per
-        # CSR edge), a value no pattern edge requires coded M (the all-zero
-        # allow row)
-        self._meta = None
-        if edge_data is not None and pattern.edge_data is not None:
-            vals, allow = pattern.edge_meta_tables()
-            ed = np.asarray(edge_data, dtype=np.int64)
-            pos = np.minimum(np.searchsorted(vals, ed), len(vals) - 1)
-            code = np.where(vals[pos] == ed, pos, len(vals)).astype(np.int64)
-            self._meta = (vals, allow, code)
-        em = None if self._meta is None else (self._meta[1], self._meta[2])
-        if sharded:
-            from ..parallel.sharded import ShardedLccEngine
-
-            self.lcc = ShardedLccEngine(
-                graph, self.labels, pattern, mesh=mesh, num_ranks=num_ranks,
-                edge_meta=em, counting=counting,
-            )
-        elif lcc_engine == "bucketed":
-            self.lcc = BucketedLccEngine(
-                graph, self.labels, pattern, device=self.device,
-                num_ranks=num_ranks, edge_meta=em, counting=counting,
-            )
-        else:
-            self.lcc = LccEngine(
-                graph, self.labels, pattern, num_ranks=num_ranks,
-                counting=counting, edge_meta=em, device=self.device,
-            )
-        # the bucketed and mesh engines' states hold the alive set in slot
-        # space (``alive_pairs``); the flat engine's are E-sized global arrays
-        self._fast = hasattr(self.lcc, "alive_pairs")
-        # NLCC placement: "device" runs every constraint on the device
-        # engine, "host" on the host engine, "auto" moves a constraint to
-        # the device when its first token expansion has at least
-        # ``nlcc_device_min`` lanes
-        self.nlcc_mode = nlcc_mode
-        self.nlcc_device_min = nlcc_device_min
-        self._dev_nlcc = None
-        if nlcc_mode != "host" and graph.num_vertices < (1 << 31):
-            if sharded:
-                # on a mesh the token walks run on its shards
-                from ..parallel.nlcc_sharded import ShardedNlcc
-
-                self._dev_nlcc = ShardedNlcc(graph.num_vertices, mesh, num_ranks=num_ranks)
-            else:
-                self._dev_nlcc = DeviceNlcc(
-                    graph.num_vertices, num_ranks=num_ranks, device=self.device
+                mesh = build_mesh(device=device)
+            if sharded and mesh.spans_processes:
+                raise NotImplementedError(
+                    f"{mesh}: the match loop is single-controller, as in the JAX "
+                    "package: it reads the whole LCC state on the host between "
+                    "calls (the compact continuation, the NLCC placement and "
+                    "walks), and a mesh across processes holds it in several "
+                    "processes. Across processes only the LCC data plane runs "
+                    "(parallel/sharded.py: init_state + lcc_call; "
+                    "cli/sharded_lcc_demo.py)"
                 )
-        # the JAX API's count of device runs redone on the host; the device
-        # engine sizes every frontier exactly, so nothing is redone
-        self.nlcc_fallbacks = 0
-        # compact continuation (run supersteps 1+ on the pruned subgraph) is
-        # exact only when every template vertex requires hearing at least
-        # one neighbour class; vertices with no alive edges then always die.
-        # ``compact=False`` runs every superstep on the full graph.
-        self._compact_ok = bool(
-            np.all(
-                (pattern.edges_bitset != 0)
-                | (pattern.min_optional_edge_count > 0)
+            # the mesh's first device hosts the driver's own device work (the
+            # compact sub-engine)
+            self.device = mesh.devices[0] if sharded else torch.device(device)
+            self.superstep_timing = superstep_timing
+            self.graph = graph
+            self.labels = np.asarray(labels, dtype=np.uint64)
+            self.pattern = pattern
+            self.constraints = constraints
+            self.num_ranks = num_ranks
+            self.source_batch = source_batch
+            self.counting = counting
+            # edge-metadata matching is active iff BOTH the graph's edge data
+            # and the pattern's edge data are present: (vals, allow, code per
+            # CSR edge), a value no pattern edge requires coded M (the all-zero
+            # allow row)
+            self._meta = None
+            if edge_data is not None and pattern.edge_data is not None:
+                vals, allow = pattern.edge_meta_tables()
+                ed = np.asarray(edge_data, dtype=np.int64)
+                pos = np.minimum(np.searchsorted(vals, ed), len(vals) - 1)
+                code = np.where(vals[pos] == ed, pos, len(vals)).astype(np.int64)
+                self._meta = (vals, allow, code)
+            em = None if self._meta is None else (self._meta[1], self._meta[2])
+            if sharded:
+                from ..parallel.sharded import ShardedLccEngine
+
+                self.lcc = ShardedLccEngine(
+                    graph, self.labels, pattern, mesh=mesh, num_ranks=num_ranks,
+                    edge_meta=em, counting=counting,
+                )
+            elif lcc_engine == "bucketed":
+                self.lcc = BucketedLccEngine(
+                    graph, self.labels, pattern, device=self.device,
+                    num_ranks=num_ranks, edge_meta=em, counting=counting,
+                )
+            else:
+                self.lcc = LccEngine(
+                    graph, self.labels, pattern, num_ranks=num_ranks,
+                    counting=counting, edge_meta=em, device=self.device,
+                )
+            # the bucketed and mesh engines' states hold the alive set in slot
+            # space (``alive_pairs``); the flat engine's are E-sized global arrays
+            self._fast = hasattr(self.lcc, "alive_pairs")
+            # NLCC placement: "device" runs every constraint on the device
+            # engine, "host" on the host engine, "auto" moves a constraint to
+            # the device when its first token expansion has at least
+            # ``nlcc_device_min`` lanes
+            self.nlcc_mode = nlcc_mode
+            self.nlcc_device_min = nlcc_device_min
+            self._dev_nlcc = None
+            if nlcc_mode != "host" and graph.num_vertices < (1 << 31):
+                with trace.span("fpm.build.nlcc"):
+                    if sharded:
+                        # on a mesh the token walks run on its shards
+                        from ..parallel.nlcc_sharded import ShardedNlcc
+
+                        self._dev_nlcc = ShardedNlcc(
+                            graph.num_vertices, mesh, num_ranks=num_ranks
+                        )
+                    else:
+                        self._dev_nlcc = DeviceNlcc(
+                            graph.num_vertices, num_ranks=num_ranks, device=self.device
+                        )
+            # the JAX API's count of device runs redone on the host; the device
+            # engine sizes every frontier exactly, so nothing is redone
+            self.nlcc_fallbacks = 0
+            # compact continuation (run supersteps 1+ on the pruned subgraph) is
+            # exact only when every template vertex requires hearing at least
+            # one neighbour class; vertices with no alive edges then always die.
+            # ``compact=False`` runs every superstep on the full graph.
+            self._compact_ok = bool(
+                np.all(
+                    (pattern.edges_bitset != 0)
+                    | (pattern.min_optional_edge_count > 0)
+                )
             )
-        )
-        # the compact closure needs the full edge_row/cols arrays, which a
-        # lazily-opened GraphDb lacks
-        self._compact_engine = compact and self._fast and isinstance(graph, Graph)
-        # (fp, keys, union, alive_sub_eids, sub, slot map): the compact
-        # closure and its engine, keyed on the alive set it was built for; it
-        # also serves any alive set inside ``union`` (``_closure``), and
-        # through the slot map (None beside a mesh engine) a search's first
-        # phase on the device (``_mapped_call``)
-        self._sub_cache: tuple | None = None
-        self._edge_keys: np.ndarray | None = None
-        # per-constraint token-source label candidates (labels never change)
-        self._cands = [
-            np.nonzero(self.labels == c.labels[0])[0].astype(np.int64)
-            for c in constraints
-        ]
+            # the compact closure needs the full edge_row/cols arrays, which a
+            # lazily-opened GraphDb lacks
+            self._compact_engine = compact and self._fast and isinstance(graph, Graph)
+            # (fp, keys, union, alive_sub_eids, sub, slot map): the compact
+            # closure and its engine, keyed on the alive set it was built for; it
+            # also serves any alive set inside ``union`` (``_closure``), and
+            # through the slot map (None beside a mesh engine) a search's first
+            # phase on the device (``_mapped_call``)
+            self._sub_cache: tuple | None = None
+            self._edge_keys: np.ndarray | None = None
+            # per-constraint token-source label candidates (labels never change)
+            self._cands = [
+                np.nonzero(self.labels == c.labels[0])[0].astype(np.int64)
+                for c in constraints
+            ]
+            self._sync()
+        self._unsearched = True
 
     def _edge_index(self, v: int, u: int) -> int:
         """Edge slot of (v, u): binary search within v's sorted CSR row."""
@@ -495,28 +520,34 @@ class MatchEngine:
                 trace.count("compact_subset_hits")
                 return union, pos, cache[4]
         trace.count("compact_builds")
-        rkeys = acol.astype(np.uint64) * vv + arow.astype(np.uint64)
-        union = np.union1d(keys, rkeys)
-        u_row = (union // vv).astype(np.int64)
-        u_col = (union % vv).astype(np.int64)
-        gsub = from_edges(u_row, u_col, num_vertices=self.graph.num_vertices)
-        sub_meta = None
-        if self._meta is not None:
-            # union is in CSR key order, so from_edges keeps it: sub
-            # edge e is union[e]
-            sub_meta = (
-                self._meta[1],
-                self._meta[2][np.searchsorted(self._edge_keys_cached(), union)],
+        with trace.span("fpm.lcc.compact.build"):
+            with trace.span("fpm.lcc.compact.build.keys"):
+                rkeys = acol.astype(np.uint64) * vv + arow.astype(np.uint64)
+                union = np.union1d(keys, rkeys)
+                u_row = (union // vv).astype(np.int64)
+                u_col = (union % vv).astype(np.int64)
+            with trace.span("fpm.lcc.compact.build.graph"):
+                gsub = from_edges(u_row, u_col, num_vertices=self.graph.num_vertices)
+                sub_meta = None
+                if self._meta is not None:
+                    # union is in CSR key order, so from_edges keeps it: sub
+                    # edge e is union[e]
+                    sub_meta = (
+                        self._meta[1],
+                        self._meta[2][np.searchsorted(self._edge_keys_cached(), union)],
+                    )
+            sub = BucketedLccEngine(
+                gsub, self.labels, self.pattern, device=self.device,
+                num_ranks=self.num_ranks, edge_meta=sub_meta,
+                counting=self.counting,
             )
-        sub = BucketedLccEngine(
-            gsub, self.labels, self.pattern, device=self.device,
-            num_ranks=self.num_ranks, edge_meta=sub_meta,
-            counting=self.counting,
-        )
-        # per-slot aliveness = membership in the original set
-        pos = np.minimum(np.searchsorted(keys, union), len(keys) - 1)
-        alive_sub_eids = np.nonzero(keys[pos] == union)[0]
-        self._sub_cache = (fp, keys, union, alive_sub_eids, sub, self._slot_map(union, sub))
+            with trace.span("fpm.lcc.compact.build.alive"):
+                # per-slot aliveness = membership in the original set
+                pos = np.minimum(np.searchsorted(keys, union), len(keys) - 1)
+                alive_sub_eids = np.nonzero(keys[pos] == union)[0]
+            with trace.span("fpm.lcc.compact.build.slot_map"):
+                smap = self._slot_map(union, sub)
+        self._sub_cache = (fp, keys, union, alive_sub_eids, sub, smap)
         return self._sub_cache[2:5]
 
     def _slot_map(self, union, sub) -> _SlotMap | None:
@@ -595,8 +626,6 @@ class MatchEngine:
         cand = self._cands[pl]
         with trace.span("fpm.nlcc.place"):
             use_dev = self._nlcc_on_device(acsr, c, tv, cand, active=act)
-        if use_dev:
-            trace.count("nlcc_device_walks")
         with trace.span("fpm.nlcc.walk.device" if use_dev else "fpm.nlcc.walk.host"):
             # metadata mode: the code each hop's edge must carry
             hopc = (
@@ -670,7 +699,10 @@ class MatchEngine:
     def run(self, max_iterations: int = 100) -> MatchResult:
         t_start = time.perf_counter()
         result = MatchResult()
-        with trace.search(result):
+        # the engine's first search, which builds the compact closure, is
+        # recorded on the host clock where no profiler records
+        first, self._unsearched = self._unsearched, False
+        with trace.search(result, id(self) if first else None):
             self._search(result, max_iterations)
         result.total_seconds = time.perf_counter() - t_start
         return result

@@ -39,6 +39,15 @@ Two search modes change the acceptance, as in the JAX engine:
 
 tv is int32 holding the 16-bit candidate set; alive and the token-passing
 flags are bool over the flat slot space plus one always-dead pad slot.
+
+Where a recorder is open (``utils/trace.py``: a ``MatchEngine``'s
+``fpm.build``, a search's closure build), the constructor opens
+``fpm.build.lcc`` with ``.layout`` (``_build_layout``: bucket assignment,
+``edge_to_slot``, ``rev``, in numpy), ``.codes`` (``_build_codes``: label
+codes, pattern constants, edge-metadata codes, counting classes) and
+``.planes`` (``_build_planes``: ``build_planes``, ``_rev_flat`` and each
+bucket's rows, uploaded); a constructor called with none open records
+nothing.
 """
 
 from __future__ import annotations
@@ -135,6 +144,19 @@ class BucketedLccEngine:
         self.graph = graph
         self.p = pattern
         self.num_ranks = num_ranks
+        # the build's phases, each a span where a recorder is open
+        # (utils/trace.py: a MatchEngine's build, a closure's in a search)
+        with trace.span("fpm.build.lcc"):
+            with trace.span("fpm.build.lcc.layout"):
+                self._build_layout(graph, min_width, max_width)
+            with trace.span("fpm.build.lcc.codes"):
+                codes = self._build_codes(labels, pattern, edge_meta, counting)
+            with trace.span("fpm.build.lcc.planes"):
+                self._build_planes(labels, *codes)
+
+    def _build_layout(self, graph: Graph, min_width: int, max_width: int) -> None:
+        """The slot layout: bucket assignment, ``num_slots``, the
+        edge-to-slot map and each slot's reverse slot (numpy)."""
         v = graph.num_vertices
         self.num_vertices = v
         deg = np.diff(graph.row_ptr)
@@ -202,6 +224,11 @@ class BucketedLccEngine:
             rv_flat[np.nonzero(mask)[0]] = tmp
             b.rev = rv_flat.reshape(b.adj.shape)
 
+    def _build_codes(self, labels, pattern: PatternGraph, edge_meta, counting: bool):
+        """The label codes, the pattern constants, the slots' edge-metadata
+        codes (and the allow table's upload) and the counting classes;
+        returns (code_pad, code_tv, slot_meta, slot_cls)."""
+        v = self.num_vertices
         # --- init-superstep label codes -----------------------------------
         # At the global init step tv == label_tv, so a slot's candidate set
         # is a function of its neighbour's label: a small per-slot label
@@ -250,10 +277,13 @@ class BucketedLccEngine:
             for j, cl in enumerate(class_labels):
                 class_pad[:v][lab == cl] = j + 1
             slot_cls = [class_pad[b.adj] for b in self.buckets]
+        return code_pad, code_tv, slot_meta, slot_cls
 
-        # --- device planes -------------------------------------------------
-        dev = self.device
-        lab_tv = pattern.label_match_bitset(np.asarray(labels)).astype(np.int32)
+    def _build_planes(self, labels, code_pad, code_tv, slot_meta, slot_cls) -> None:
+        """The device planes: ``build_planes``, ``_rev_flat`` and each
+        bucket's rows and metadata codes, uploaded."""
+        v, dev = self.num_vertices, self.device
+        lab_tv = self.p.label_match_bitset(np.asarray(labels)).astype(np.int32)
         self.label_tv = to_device(lab_tv, dev)
         # flat planes over every bucket and the bucket table, what the fused
         # supersteps read (ops/lcc_fused.py); each bucket's planes below
@@ -262,7 +292,7 @@ class BucketedLccEngine:
             [b.adj.shape[1] for b in self.buckets], [b.rows for b in self.buckets],
             [b.seg_id for b in self.buckets], [b.seg_rows for b in self.buckets],
             [b.adj for b in self.buckets], [code_pad[b.adj] for b in self.buckets],
-            code_tv, v, num_ranks, dev, cls=slot_cls if counting else None,
+            code_tv, v, self.num_ranks, dev, cls=slot_cls if self.counting else None,
         )
         self._tmpl = Template(
             tuple(self.adj_all), tuple(self.mand), tuple(self.opt), tuple(self.opt_min),
